@@ -6,17 +6,35 @@ Usage, from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the hand-written kernels from csrc/ (nvcc, sm_90a);
-  3. K1, the binned UV rasterizer, against its plain torch version on the
-     card: the head through the 4 views at 256^2, N = 4 (16 images);
-  4. K4, tri-plane sampling, against its plain version on the card: planes
+  2. build the hand-written kernels from csrc/ (one nvcc per source, all
+     started together, sm_90a);
+  3. the rasterizer kernels on the head through the flagship's 4 views at
+     256^2, N = 4 (16 images), each against its plain torch version on the
+     card, bit for bit: K1 (binned, (u, v)), K2 (binned, zbuf; its
+     pix_to_face equal to K1's), K3 (16-px tiles; equal to K1), K5 (per-face
+     z-buffer, patch 32; its pixels that differ from K1's are logged);
+  4. K4, tri-plane sampling, against its plain version: planes
      (4, 3, 32, 256, 256) at the coarse-pass points of the FFHQ camera;
-  5. the 512^2 FFHQ forward (mapping + synthesis, port-native random init)
+  5. K6, the 8-row block gather, at (98304, 128) with 131072 indices, in
+     bf16 and f32, bit for bit;
+  6. the 512^2 FFHQ forward (mapping + synthesis, port-native random init)
      at batch 1 and 4, with the kernels' launch counters;
-  6. synthesis_from_identity over 3 frames with the identity cached;
-  7. median img/s at batch 1 and 4;
-  8. with --profile only: the forward's stages in ms at batch 1 and 4, and
+  7. synthesis_from_identity over 3 frames with the identity cached;
+  8. median img/s at batch 1 and 4;
+  9. the texture variant (TriPlaneTextureGenerator) on the same config:
+     forward at batch 1 and 4, K2's launches, median img/s;
+ 10. the flagship at batch 4 with rasterizer_impl 'pallas_binned16' (K3;
+     images equal to phase 6's) and 'pallas' (K5; image within 1e-4
+     mean-abs of phase 6's);
+ 11. with --profile only, for the flagship (after phase 8) and the texture
+     variant (in phase 9): the forward's stages in ms at batch 1 and 4, and
      the device-busy share of 3 forwards from torch.profiler.
+
+Every kernel is timed by CUDA events beside its plain version and, where
+one PyTorch call computes the same function, that call (library_ms). Its
+bound is the larger of its bytes (inputs read once, outputs written once)
+over 3.35 TB/s and its float32 operations on this run's data over 67
+TFLOP/s, the H100 SXM's published peaks.
 
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
@@ -47,8 +65,18 @@ RENDER_KW_FFHQ = dict(
     superresolution_noise_mode='none', sr_antialias=True,
     density_reg=0.25, density_reg_p_dist=0.004, reg_type='l1',
     decoder_lr_mul=1.0)
-K1_SOURCE = 'next3d_tpu_torch/csrc/raster_binned_uv.cu'
-K4_SOURCE = 'next3d_tpu_torch/csrc/triplane_sample.cu'
+CSRC = 'next3d_tpu_torch/csrc/'
+LIBRARIES = ('raster_binned_uv', 'triplane_sample', 'raster_zbuffer',
+             'gather_row_blocks')
+PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
+PEAK_F32_FLOP_S = 67e12   # H100 SXM float32 outside the tensor cores
+# float32 operations a (pixel, candidate) pair needs in the binned kernels:
+# three edge planes, c + x*gx + y*gy each
+OPS_BINNED_PAIR = 12
+# ... and a (face, pixel) test in K5: three edge functions with the face's
+# differences hoisted (2 sub, 2 mul, 1 sub each), 3 barycentric scalings and
+# the depth (3 mul, 2 add)
+OPS_ZBUFFER_TEST = 23
 
 
 def log(*args):
@@ -75,6 +103,18 @@ def time_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """The least time of the work on the card, and what sets it."""
+    by_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    by_ops = n_ops / PEAK_F32_FLOP_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by='bytes' if by_bytes >= by_ops else 'operations')
 
 
 def load_head():
@@ -109,35 +149,103 @@ def ffhq_camera(n, device):
     return torch.cat([cam.reshape(n, 16), K.reshape(1, 9).expand(n, 9)], 1)
 
 
-def check_k1(G, v):
-    from next3d_tpu_torch.ops.raster import (binned_uv_prep,
-                                             rasterize_binned_uv,
-                                             rasterize_binned_uv_plain)
+def binned_pairs(verts, faces, attrs, image_size, tile):
+    """(pixel, candidate) pairs the binned resolve tests for these inputs."""
+    from next3d_tpu_torch.ops.raster import binned_prep
+    _, starts = binned_prep(verts, faces, attrs, image_size, tile)
+    return int((starts[:, -1] - starts[:, 0]).sum()) * tile * tile
+
+
+def zbuffer_tests(verts, faces, image_size, patch):
+    """(face, pixel) pairs K5 needs for these inputs: each kept face's
+    bbox pixels inside the image and inside its stripe."""
+    from next3d_tpu_torch.ops.raster_zbuffer import zbuffer_prep
+    data, y0, stripe_h = zbuffer_prep(verts, faces, image_size, patch)
+    x, y = data[:, 0:3], data[:, 3:6]
+    cols = (torch.floor(x.amax(1)).clamp(max=image_size - 1)
+            - torch.ceil(x.amin(1)).clamp(min=0) + 1).clamp(min=0)
+    rows = (torch.minimum(torch.floor(y.amax(1)), y0 + stripe_h - 1.0)
+            - torch.maximum(torch.ceil(y.amin(1)), y0.float()) + 1
+            ).clamp(min=0)
+    return int((cols * rows * (data[:, 9] > 0)).sum())
+
+
+def check_rasterizers(G, v):
+    """Phase 3: K1, K2, K3 and K5 on the flagship's 16-image rasterizer
+    input, each bit for bit against its plain version."""
+    from next3d_tpu_torch.ops import raster, raster_zbuffer
     tv, _ = G.project_views(v[:, :5023], v[:, 5023:])
-    args = (tv.contiguous(), G.faces, G.face_uv[None], G.uv_resolution)
-    pf, u, vv = rasterize_binned_uv(*args)
-    pf_p, u_p, v_p = rasterize_binned_uv_plain(*args)
-    torch.cuda.synchronize()
-    mismatch = int((pf != pf_p).sum())
-    err = max(float((u - u_p).abs().max()), float((vv - v_p).abs().max()))
-    covered = float((pf >= 0).float().mean())
-    ms = time_ms(lambda: rasterize_binned_uv(*args))
-    plain_ms = time_ms(lambda: rasterize_binned_uv_plain(*args), reps=3)
-    prep_ms = time_ms(lambda: binned_uv_prep(*args))
-    slab, starts = binned_uv_prep(*args)
+    tv = tv.contiguous()
+    res = G.uv_resolution
+    uv_args = (tv, G.faces, G.face_uv[None], res)
+    in_bytes = nbytes(tv, G.faces)
+    out_img = tv.shape[0] * res * res * 4
+    results = {}
+
+    def record(name, got, want, fn, plain, n_bytes, n_ops, reps=3):
+        torch.cuda.synchronize()
+        mismatch = [int((a != b).sum()) for a, b in zip(got, want)]
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got[1:], want[1:]))
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain, reps=reps, warmup=1)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, **bound(n_bytes, n_ops))
+        log(f'{name}: {tuple(tv.shape[:1])} images at {res}^2: mismatching '
+            f'elements {mismatch}, max-abs {err:.3g}; wrapper {ms:.3f} ms, '
+            f'plain {plain_ms:.3f} ms, bound {results[name]["bound_ms"]:.4f}'
+            f' ms by {results[name]["bound_by"]}')
+        if any(mismatch):
+            raise RuntimeError(f'{name} disagrees with its plain version')
+
+    k1 = raster.rasterize_binned_uv(*uv_args)
+    k1_plain = raster.rasterize_binned_uv_plain(*uv_args)
+    slab, starts = raster.binned_prep(*uv_args)
     occupancy = int((starts[:, 1:] - starts[:, :-1]).max())
-    log(f'K1 {tuple(tv.shape[:1])} images at {G.uv_resolution}^2: '
-        f'pix_to_face mismatches {mismatch}, u/v max-abs {err:.3g}, '
-        f'coverage {covered:.3f}, max tile segment {occupancy}; '
-        f'kernel path {ms:.3f} ms (prep alone {prep_ms:.3f} ms), '
-        f'plain {plain_ms:.3f} ms')
-    if mismatch != 0 or not err <= 1e-5:
-        raise RuntimeError('K1 disagrees with its plain version')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    prep_ms = time_ms(lambda: raster.binned_prep(*uv_args))
+    log(f'K1 coverage {float((k1[0] >= 0).float().mean()):.3f}, max tile '
+        f'segment {occupancy}, torch prep alone {prep_ms:.3f} ms')
+    record('K1', k1, k1_plain, lambda: raster.rasterize_binned_uv(*uv_args),
+           lambda: raster.rasterize_binned_uv_plain(*uv_args),
+           in_bytes + nbytes(G.face_uv) + 3 * out_img,
+           OPS_BINNED_PAIR * binned_pairs(*uv_args, raster.TILE))
+
+    k2 = raster.rasterize_binned(tv, G.faces, res)
+    record('K2', k2, raster.rasterize_binned_plain(tv, G.faces, res),
+           lambda: raster.rasterize_binned(tv, G.faces, res),
+           lambda: raster.rasterize_binned_plain(tv, G.faces, res),
+           in_bytes + 2 * out_img,
+           OPS_BINNED_PAIR * binned_pairs(tv, G.faces, None, res, raster.TILE))
+    if not torch.equal(k2[0], k1[0]):
+        raise RuntimeError('K2 pix_to_face differs from K1')
+
+    k3 = raster.rasterize_binned_uv16(*uv_args)
+    record('K3', k3, raster.rasterize_binned_uv16_plain(*uv_args),
+           lambda: raster.rasterize_binned_uv16(*uv_args),
+           lambda: raster.rasterize_binned_uv16_plain(*uv_args),
+           in_bytes + nbytes(G.face_uv) + 3 * out_img,
+           OPS_BINNED_PAIR * binned_pairs(*uv_args, raster.TILE16))
+    if not all(torch.equal(a, b) for a, b in zip(k3, k1)):
+        raise RuntimeError('K3 differs from K1')
+
+    zb_args = (tv, G.faces, res, 32)
+    k5 = raster_zbuffer.rasterize_zbuffer(*zb_args)
+    record('K5', k5, raster_zbuffer.rasterize_zbuffer_plain(*zb_args),
+           lambda: raster_zbuffer.rasterize_zbuffer(*zb_args),
+           lambda: raster_zbuffer.rasterize_zbuffer_plain(*zb_args),
+           in_bytes + 2 * out_img,
+           OPS_ZBUFFER_TEST * zbuffer_tests(*zb_args))
+    log(f'K5 (patch 32) vs K1: {int((k5[0] != k1[0]).sum())} of '
+        f'{k1[0].numel()} pixels differ in pix_to_face, coverage on '
+        f'{int(((k5[0] >= 0) != (k1[0] >= 0)).sum())}')
+    return results
 
 
 def check_k4(device):
-    from next3d_tpu_torch.ops.triplane import (channels_last, triplane_sample,
+    import torch.nn.functional as F
+    from next3d_tpu_torch.ops.triplane import (channels_last,
+                                               project_onto_planes,
+                                               triplane_sample,
                                                triplane_sample_plain)
     from next3d_tpu_torch.render.ray_sampler import sample_rays
     from next3d_tpu_torch.render.renderer import sample_stratified
@@ -156,12 +264,59 @@ def check_k4(device):
     ms = time_ms(lambda: triplane_sample(planes, coords, 1.0))
     plain_ms = time_ms(lambda: triplane_sample_plain(planes, coords, 1.0))
     layout_ms = time_ms(lambda: channels_last(raw))
-    log(f'K4 planes (4, 3, 32, 256, 256), {coords.shape[1]} points: '
-        f'max-abs {err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-        f'channels-last layout {layout_ms:.3f} ms')
+    # the one PyTorch call for the same sampling: F.grid_sample on the
+    # channels-first planes at the projected points
+    feats = raw.reshape(12, 32, 256, 256)
+    grid = project_onto_planes(2.0 * coords)[:, None]   # box_warp 1
+    library_ms = time_ms(lambda: F.grid_sample(
+        feats, grid, mode='bilinear', padding_mode='zeros',
+        align_corners=False))
+    M = coords.shape[1]
+    # 4 taps of 32 channels, a multiply and an add each, per point and plane
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               **bound(nbytes(planes, coords, got), 12 * M * 32 * 8))
+    log(f'K4 planes (4, 3, 32, 256, 256), {M} points: max-abs {err:.3g}; '
+        f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.grid_sample '
+        f'{library_ms:.3f} ms, channels-last layout {layout_ms:.3f} ms, '
+        f'bound {out["bound_ms"]:.4f} ms by {out["bound_by"]}')
     if not err <= 1e-5:
         raise RuntimeError('K4 disagrees with its plain version')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return out
+
+
+def check_k6(device):
+    """Phase 5: the gather at the shape of the TPU kernel's measurement,
+    in bf16 and f32; the entry for the kernels line is bf16's."""
+    from next3d_tpu_torch.ops.dma_gather import (gather_row_blocks,
+                                                 gather_row_blocks_plain)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    idx = torch.randint(0, 98304, (131072,), generator=g, device=device,
+                        dtype=torch.int32)
+    tables = {dt: torch.randn(98304, 128, generator=g, device=device).to(dt)
+              for dt in (torch.bfloat16, torch.float32)}
+    gather_row_blocks.launches = 0
+    outs = {dt: gather_row_blocks(t, idx) for dt, t in tables.items()}
+    torch.cuda.synchronize()
+    launches = gather_row_blocks.launches
+    results = {}
+    for dt, table in tables.items():
+        want = gather_row_blocks_plain(table, idx)
+        err = float((outs[dt].float() - want.float()).abs().max())
+        if not torch.equal(outs[dt], want):
+            raise RuntimeError(f'K6 {dt} disagrees with its plain version')
+        blocks, blk = table.view(-1, 8, 128), idx // 8
+        results[dt] = dict(
+            max_abs_err=err, ms=time_ms(lambda: gather_row_blocks(table, idx)),
+            plain_ms=time_ms(lambda: gather_row_blocks_plain(table, idx)),
+            library_ms=time_ms(lambda: blocks.index_select(0, blk)),
+            **bound(nbytes(table, idx, want), 0))
+        r = results[dt]
+        log(f'K6 {dt} table (98304, 128), 131072 indices: exact; kernel '
+            f'{r["ms"]:.3f} ms, plain {r["plain_ms"]:.3f} ms, index_select '
+            f'{r["library_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms by '
+            f'{r["bound_by"]}')
+    return results[torch.bfloat16], launches
 
 
 def check_outputs(out, n):
@@ -194,11 +349,38 @@ def median_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def profile_stages(G, forward, z, c, v, n):
-    """Phase 8: the forward split into its stages (each timed alone on the
-    same inputs), and the share of wall time in which a kernel ran."""
-    from next3d_tpu_torch.ops.raster import (_resolve_cuda, _resolve_plain,
-                                             binned_uv_prep)
+def throughput(name, forward, card):
+    """Median img/s of ``forward(n)`` at batch 1 and 4: 2 warm-ups, then 5
+    forwards, each ended by a synchronize."""
+    for n in (1, 4):
+        for _ in range(2):
+            forward(n)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(n)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        log(f'{name} batch {n}: median {n / statistics.median(times):.3f} '
+            f'img/s (forward ms {[round(t * 1e3, 2) for t in times]}) '
+            f'on {card}')
+
+
+def counted(fn, kernels):
+    """Run ``fn()`` with the launch counters of ``kernels`` (a dict name ->
+    wrapper) set to 0 just before; returns its result and the counts."""
+    for wrapper in kernels.values():
+        wrapper.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in kernels.items()}
+
+
+def flagship_stages(G, forward, z, c, v):
+    """The flagship forward's stages, each a call on the forward's own
+    inputs."""
+    from next3d_tpu_torch.ops import raster
     verts, lms = G._split_v(v)
     ws = G.mapping(z, c, truncation_psi=0.7, truncation_cutoff=14)
     n_tex = G.texture_backbone.num_ws
@@ -207,7 +389,8 @@ def profile_stages(G, forward, z, c, v, n):
     images, _, lm2d = G.rasterize(verts, lms, textures)
     tv, _ = G.project_views(verts, lms)
     args = (tv.contiguous(), G.faces, G.face_uv[None], G.uv_resolution)
-    slab, starts = binned_uv_prep(*args)
+    slab, starts = raster.binned_prep(*args)
+    res, tile = G.uv_resolution, raster.TILE
     planes = G.mix_planes_from_identity(eg3d_ws, textures, static, verts,
                                         lms, noise_mode='const')
     stages = {
@@ -220,17 +403,54 @@ def profile_stages(G, forward, z, c, v, n):
             ws[:, :n_tex], noise_mode='const'),
         'rasterize (K1 + texture sample + fill_mouth)': lambda: G.rasterize(
             verts, lms, textures),
-        '- K1 torch prep': lambda: binned_uv_prep(*args),
-        '- K1 resolve kernel': lambda: _resolve_cuda(slab, starts,
-                                                     G.uv_resolution),
-        '- K1 resolve plain': lambda: _resolve_plain(slab, starts,
-                                                     G.uv_resolution),
+        '- K1 torch prep': lambda: raster.binned_prep(*args),
+        '- K1 resolve kernel': lambda: raster._resolve_cuda(
+            slab, starts, res, tile, raster.rasterize_binned_uv),
+        '- K1 resolve plain': lambda: raster._resolve_plain(slab, starts,
+                                                            res, tile),
         'mouth + blend StyleUNets': lambda: G._mouth_pipeline(
             images[0], lm2d, eg3d_ws, 'const', None),
         'render + SR': lambda: G._render_from_planes(
             planes, eg3d_ws, c, None, 'const', None)}
-    for name, fn in stages.items():
-        log(f'stage batch {n}: {name}: {median_ms(fn):.3f} ms')
+    return stages
+
+
+def texture_stages(T, forward, z, c, v):
+    """The texture variant's forward stages."""
+    from next3d_tpu_torch.ops.raster import rasterize_binned
+    from next3d_tpu_torch.render.rasterizer import \
+        interpolate_face_attributes
+    ws = T.mapping(z, c, truncation_psi=0.7, truncation_cutoff=14)
+    n_tex = T.texture_backbone.num_ws
+    eg3d_ws = ws[:, :n_tex]
+    textures, static = T.build_identity(ws, noise_mode='const')
+    planes = T.mix_planes_from_identity(eg3d_ws, textures, static, v, None)
+    tv = T.project_orth(v)
+    res = T.uv_resolution
+    pf, _ = rasterize_binned(tv, T.faces, res)
+    return {
+        'whole forward': forward,
+        'mapping': lambda: T.mapping(z, c, truncation_psi=0.7,
+                                     truncation_cutoff=14),
+        'texture backbone': lambda: T.texture_backbone.synthesis(
+            ws[:, n_tex:], noise_mode='const'),
+        'static backbone': lambda: T.backbone.synthesis(
+            ws[:, :n_tex], noise_mode='const'),
+        'rasterize_orth (K2 + interpolation + texture sample)':
+            lambda: T.rasterize_orth(v, textures),
+        '- K2 (torch prep + kernel)': lambda: rasterize_binned(tv, T.faces,
+                                                               res),
+        '- interpolate_face_attributes': lambda: interpolate_face_attributes(
+            tv, T.faces, T.face_uvcoords[None], pf, res),
+        'render + SR': lambda: T._render_from_planes(
+            planes, eg3d_ws, c, None, 'const', None)}
+
+
+def profile_stages(name, stages, forward, n):
+    """Phase 11: the forward split into its stages (each timed alone on the
+    same inputs), and the share of wall time in which a kernel ran."""
+    for stage, fn in stages.items():
+        log(f'{name} stage batch {n}: {stage}: {median_ms(fn):.3f} ms')
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -250,8 +470,8 @@ def profile_stages(G, forward, z, c, v, n):
             busy += hi - max(lo, end)
             end = hi
     busy /= 1e3
-    log(f'profile batch {n}, 3 forwards: wall {wall:.1f} ms, device busy '
-        f'{busy:.1f} ms ({100 * busy / wall:.0f}%), {len(spans)} kernels')
+    log(f'{name} profile batch {n}, 3 forwards: wall {wall:.1f} ms, device '
+        f'busy {busy:.1f} ms ({100 * busy / wall:.0f}%), {len(spans)} kernels')
     log(prof.key_averages().table(sort_by='self_cuda_time_total',
                                   row_limit=12, max_name_column_width=60))
 
@@ -259,7 +479,7 @@ def profile_stages(G, forward, z, c, v, n):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
-                        help='add phase 8, the per-stage profile')
+                        help='add phase 11, the per-stage profile')
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -275,49 +495,66 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
-    from next3d_tpu_torch.ops import cuda_build, raster, triplane
+    from next3d_tpu_torch.models.triplane_texture import \
+        TriPlaneTextureGenerator
+    from next3d_tpu_torch.ops import (cuda_build, dma_gather, raster,
+                                      raster_zbuffer, triplane)
 
     t0 = time.time()
-    for name in ('raster_binned_uv', 'triplane_sample'):
-        so = cuda_build.build(name)
+    for so in cuda_build.build_all(LIBRARIES):
         log(f'built {so.name}; nvcc says:\n'
             + so.with_suffix('.log').read_text().strip())
     log(f'kernel build {time.time() - t0:.1f} s')
 
     mesh, lms = load_head()
-    t0 = time.time()
-    G = TriPlaneGenerator(
-        z_dim=512, c_dim=25, w_dim=512, img_resolution=512, img_channels=3,
-        topology_path=mesh, rendering_kwargs=RENDER_KW_FFHQ,
-        sr_num_fp16_res=4,
-        generator=torch.Generator().manual_seed(SEED)).to(device).eval()
-    n_params = sum(p.numel() for p in G.parameters())
-    log(f'generator: {n_params} parameters, built in {time.time() - t0:.1f} s')
+
+    def build(cls, **kw):
+        t0 = time.time()
+        G = cls(z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
+                img_channels=3, topology_path=mesh,
+                rendering_kwargs=RENDER_KW_FFHQ, sr_num_fp16_res=4,
+                generator=torch.Generator().manual_seed(SEED), **kw)
+        G = G.to(device).eval()
+        log(f'{cls.__name__} {kw}: '
+            f'{sum(p.numel() for p in G.parameters())} parameters, built in '
+            f'{time.time() - t0:.1f} s')
+        return G
+
+    G = build(TriPlaneGenerator)
+    kernels = {'K1': raster.rasterize_binned_uv,
+               'K2': raster.rasterize_binned,
+               'K3': raster.rasterize_binned_uv16,
+               'K4': triplane.triplane_sample,
+               'K5': raster_zbuffer.rasterize_zbuffer,
+               'K6': dma_gather.gather_row_blocks}
+    launches = {}
 
     with torch.no_grad():
-        k1 = check_k1(G, head_batch(mesh, lms, 4, device))
-        k4 = check_k4(device)
+        stats = check_rasterizers(G, head_batch(mesh, lms, 4, device))
+        stats['K4'] = check_k4(device)
+        stats['K6'], launches['K6'] = check_k6(device)
 
         g = torch.Generator(device=device).manual_seed(SEED)
-        z = {n: torch.randn(n, 512, generator=g, device=device) for n in (1, 4)}
+        z = {n: torch.randn(n, 512, generator=g, device=device)
+             for n in (1, 4)}
         c = {n: ffhq_camera(n, device) for n in (1, 4)}
         v = {n: head_batch(mesh, lms, n, device) for n in (1, 4)}
 
-        def forward(n):
-            return G(z[n], c[n], v[n], truncation_psi=0.7,
-                     truncation_cutoff=14, noise_mode='const')
+        def forward_of(model, flame_only=False):
+            def forward(n):
+                vn = v[n][:, :5023] if flame_only else v[n]
+                return model(z[n], c[n], vn, truncation_psi=0.7,
+                             truncation_cutoff=14, noise_mode='const')
+            return forward
 
-        raster.rasterize_binned_uv.launches = 0
-        triplane.triplane_sample.launches = 0
-        outs = {n: forward(n) for n in (1, 4)}
-        torch.cuda.synchronize()
-        launches = {'K1': raster.rasterize_binned_uv.launches,
-                    'K4': triplane.triplane_sample.launches}
+        forward = forward_of(G)
+        outs, counts = counted(lambda: {n: forward(n) for n in (1, 4)},
+                               kernels)
         for n, out in outs.items():
             check_outputs(out, n)
         log(f'512^2 forward at batch 1 and 4: finite, depth in the sample '
-            f'range; '
-            f'launches {launches}')
+            f'range; launches {counts}')
+        launches.update(K1=counts['K1'], K4=counts['K4'])
         if min(launches.values()) <= 0:
             raise RuntimeError('a kernel of the main path never launched')
 
@@ -337,33 +574,92 @@ def main():
                 if not err <= 1e-4:
                     raise RuntimeError('identity-cached synthesis disagrees')
 
-        for n in (1, 4):
-            for _ in range(2):
-                forward(n)
-            times = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                forward(n)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            log(f'batch {n}: median {n / statistics.median(times):.3f} img/s '
-                f'(forward ms {[round(t * 1e3, 2) for t in times]}) '
-                f'on {card}')
-
+        throughput('flagship', forward, card)
         if opts.profile:
             for n in (1, 4):
-                profile_stages(G, lambda: forward(n), z[n], c[n], v[n], n)
+                profile_stages('flagship', flagship_stages(
+                    G, lambda: forward(n), z[n], c[n], v[n]),
+                    lambda: forward(n), n)
 
-    kernels = [
-        dict(name='K1 rasterize_binned_uv', route='cuda', source=K1_SOURCE,
-             replaces='next3d_tpu/ops/pallas_raster.py:489',
-             launches=launches['K1'], **k1),
-        dict(name='K4 triplane_sample', route='cuda', source=K4_SOURCE,
-             replaces='next3d_tpu/ops/pallas_triplane.py:177',
-             launches=launches['K4'], **k4)]
+        T = build(TriPlaneTextureGenerator)
+        forward_t = forward_of(T, flame_only=True)
+        outs_t, counts = counted(lambda: {n: forward_t(n) for n in (1, 4)},
+                                 kernels)
+        for n, out in outs_t.items():
+            check_outputs(out, n)
+        log(f'texture variant 512^2 forward at batch 1 and 4: finite, depth '
+            f'in the sample range; launches {counts}')
+        launches['K2'] = counts['K2']
+        if counts['K2'] <= 0:
+            raise RuntimeError('the texture variant never launched K2')
+        throughput('texture variant', forward_t, card)
+        if opts.profile:
+            for n in (1, 4):
+                profile_stages('texture variant', texture_stages(
+                    T, lambda: forward_t(n), z[n], c[n], v[n][:, :5023]),
+                    lambda: forward_t(n), n)
+        del T, outs_t
+
+        # the default forward is not bit-reproducible on the card (cuDNN's
+        # transposed convolutions may accumulate with atomics), so this
+        # phase compares under cuDNN's deterministic algorithms, with the
+        # default forward's own run-to-run spread beside it
+        torch.backends.cudnn.deterministic = True
+        ref = forward(4)
+        spread = max(float((forward(4)[k] - ref[k]).abs().max()) for k in ref)
+        verts, lms = G._split_v(v[4])
+        tex4, _ = G.build_identity(G.mapping(
+            z[4], c[4], truncation_psi=0.7, truncation_cutoff=14),
+            noise_mode='const')
+        ref_raster = G.rasterize(verts, lms, tex4)
+        log(f'default forward at batch 4, deterministic cuDNN: run-to-run '
+            f'max-abs {spread:.3g}')
+        for impl, name in (('pallas_binned16', 'K3'), ('pallas', 'K5')):
+            Gi = build(TriPlaneGenerator, rasterizer_impl=impl)
+            Gi.load_state_dict(G.state_dict())
+            out, counts = counted(lambda: forward_of(Gi)(4), kernels)
+            launches[name] = counts[name]
+            check_outputs(out, 4)
+            diff = (out['image'] - ref['image']).abs()
+            log(f"flagship rasterizer_impl='{impl}' at batch 4: launches "
+                f"{counts}; image vs the default: max-abs "
+                f"{float(diff.max()):.3g}, mean-abs {float(diff.mean()):.3g}")
+            if counts[name] <= 0:
+                raise RuntimeError(f'{impl} never launched {name}')
+            if impl == 'pallas_binned16':
+                # the stage the impl changes is bit-equal, and so is the
+                # forward wherever the default forward reproduces itself
+                images, alphas, _ = Gi.rasterize(verts, lms, tex4)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    images + alphas, ref_raster[0] + ref_raster[1]))
+                bit_equal = all(torch.equal(out[k], ref[k]) for k in out)
+                log(f'pallas_binned16: rasterize stage bit-equal {same}, '
+                    f'forward bit-equal {bit_equal}')
+                if not same or not (bit_equal or spread > 0):
+                    raise RuntimeError('pallas_binned16 changed the forward')
+            elif not float(diff.mean()) <= 1e-4:
+                raise RuntimeError('pallas moved the image too far')
+            del Gi
+        torch.backends.cudnn.deterministic = False
+
+    names = {
+        'K1': ('rasterize_binned_uv', 'raster_binned_uv.cu',
+               'next3d_tpu/ops/pallas_raster.py:489'),
+        'K2': ('rasterize_binned', 'raster_binned_uv.cu',
+               'next3d_tpu/ops/pallas_raster.py:799'),
+        'K3': ('rasterize_binned_uv16', 'raster_binned_uv.cu',
+               'next3d_tpu/ops/pallas_raster.py:744'),
+        'K4': ('triplane_sample', 'triplane_sample.cu',
+               'next3d_tpu/ops/pallas_triplane.py:177'),
+        'K5': ('rasterize_zbuffer', 'raster_zbuffer.cu',
+               'next3d_tpu/ops/pallas_raster.py:101'),
+        'K6': ('gather_row_blocks', 'gather_row_blocks.cu',
+               'next3d_tpu/ops/pallas_dma_gather.py:93')}
+    line = [dict(name=f'{k} {fn}', route='cuda', source=CSRC + src,
+                 replaces=replaces, launches=launches[k], **stats[k])
+            for k, (fn, src, replaces) in names.items()]
     log(card)
-    log(json.dumps({'kernels': kernels}))
+    log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

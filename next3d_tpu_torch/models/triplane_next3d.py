@@ -7,9 +7,11 @@ superresolution, decoder, neural_blending, orth_scale, orth_shift), so
 ``utils.weights.load_jax_params`` loads a JAX tree with ``strict=True``.
 
 The 4 orthographic views are folded into the batch axis and rasterized in
-one call to kernel K1; the 3 planes are sampled by kernel K4 inside the
-volume renderer. The mouth crop and paste are per-sample slices plus
-antialiased ``F.interpolate``, which reads the landmark boxes on the host.
+one call: by default to kernel K1, or, as ``rasterizer_impl`` names it, to
+K3 ('pallas_binned16') or K5 ('pallas'); the 3 planes are sampled by kernel
+K4 inside the volume renderer. The mouth crop and paste are per-sample
+slices plus antialiased ``F.interpolate``, which reads the landmark boxes on
+the host.
 
 The port runs float32 only (the JAX ``force_fp32=True`` mode).
 ``generator`` in the constructor seeds the parameters; ``generator`` in the
@@ -32,7 +34,8 @@ from ..ops.interpolate import (interpolate_nearest, paste_resized_region,
 from ..ops.raster import TILE
 from ..render.fill_mouth import fill_mouth
 from ..render.mesh import angle2matrix, batch_orth_proj, face_vertices
-from ..render.rasterizer import rasterize_uv_with_alpha, required_patch_size
+from ..render.rasterizer import (rasterize_uv_with_alpha,
+                                 required_patch_size, resolve_impl)
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer
 from ..utils.obj_io import ObjMesh, load_obj
@@ -56,9 +59,13 @@ def _load_eye_mask(path, size):
 class TriPlaneGenerator(nn.Module):
     """Flagship --model_version=next3d generator."""
 
+    # the mouth StyleUNet and the neural blending StyleUNet
+    blends_mouth = True
+
     def __init__(self, z_dim, c_dim, w_dim, img_resolution, img_channels,
                  topology_path, uv_face_eye_mask_path=None, sr_num_fp16_res=0,
                  mapping_kwargs=None, rendering_kwargs=None, sr_kwargs=None,
+                 rasterizer_impl='auto', rasterizer_patch=32,
                  plane_resolution=256, generator=None, **synthesis_kwargs):
         super().__init__()
         self.z_dim = z_dim
@@ -69,6 +76,8 @@ class TriPlaneGenerator(nn.Module):
         self.rendering_kwargs = dict(rendering_kwargs or {})
         self.neural_rendering_resolution = 64
         self.uv_resolution = R = plane_resolution
+        self.rasterizer_impl = resolve_impl(rasterizer_impl)
+        self.rasterizer_patch = rasterizer_patch
         mapping_kwargs = mapping_kwargs or {}
         kw = dict(mapping_kwargs=mapping_kwargs, generator=generator,
                   **synthesis_kwargs)
@@ -76,16 +85,19 @@ class TriPlaneGenerator(nn.Module):
         self.renderer = ImportanceRenderer()
         self.texture_backbone = StyleGAN2Backbone(
             z_dim, c_dim, w_dim, img_resolution=R, img_channels=32, **kw)
-        self.mouth_backbone = CondGenerator(
-            z_dim, c_dim, w_dim, img_resolution=R, img_channels=32,
-            in_size=64, final_size=4, cond_channels=32, num_cond_res=64, **kw)
+        if self.blends_mouth:
+            self.mouth_backbone = CondGenerator(
+                z_dim, c_dim, w_dim, img_resolution=R, img_channels=32,
+                in_size=64, final_size=4, cond_channels=32, num_cond_res=64,
+                **kw)
         self.backbone = StyleGAN2Backbone(
             z_dim, c_dim, w_dim, img_resolution=R, img_channels=32 * 3,
             mapping_ws=self.texture_backbone.num_ws * 2, **kw)
-        self.neural_blending = CondGenerator(
-            z_dim, c_dim, w_dim, cond_channels=32, img_resolution=R,
-            img_channels=32, in_size=min(R, 256), final_size=32,
-            num_cond_res=R, **kw)
+        if self.blends_mouth:
+            self.neural_blending = CondGenerator(
+                z_dim, c_dim, w_dim, cond_channels=32, img_resolution=R,
+                img_channels=32, in_size=min(R, 256), final_size=32,
+                num_cond_res=R, **kw)
         sr_name = self.rendering_kwargs.get(
             'superresolution_module', 'SuperresolutionHybrid8XDC')
         self.superresolution = getattr(sr_modules, sr_name.rsplit('.', 1)[-1])(
@@ -126,18 +138,26 @@ class TriPlaneGenerator(nn.Module):
         self._validate_face_span(mesh.verts)
 
     def _validate_face_span(self, neutral_verts):
-        """K1 bins a face by its 4 bbox corners, which reach every tile it
-        overlaps only while its span stays below one 32-px tile: check the
-        neutral mesh through all views at the init orth_scale."""
+        """Check the neutral mesh through all views at the init orth_scale
+        against the rasterizer (JAX :165-236, without the TPU kernels'
+        segment windows). The binned kernels (K1, K2, K3) bin a face by its
+        bbox, whose entries reach every tile it overlaps only while its span
+        stays below one 32-px tile; 20% slack absorbs expressions. K5 cuts
+        a face taller than its stripe, so its patch must cover the span."""
         v = np.asarray(neutral_verts, np.float32) * np.asarray([1., -1., 1.])
         tv = v @ self.view_tforms.numpy().transpose(0, 2, 1)
         tv = (tv + np.asarray([0.0, -0.01, -0.01])) * 5.0
         tv = tv * np.asarray([1., -1., -1.]) + np.asarray([0., 0., 10.])
         span = required_patch_size(tv, self.faces.numpy(), self.uv_resolution)
-        if span >= TILE * 0.8:
-            raise ValueError(f'face bbox span {span:.0f}px approaches the '
-                             f'{TILE}-px rasterizer tile at '
-                             f'{self.uv_resolution}px')
+        if self.rasterizer_impl == 'pallas':
+            if span >= self.rasterizer_patch:
+                raise ValueError(f'rasterizer_patch={self.rasterizer_patch} '
+                                 f'< required {span:.0f}px at '
+                                 f'{self.uv_resolution}px')
+        elif span >= TILE * 0.8:
+            raise ValueError(f'{self.rasterizer_impl}: face bbox span '
+                             f'{span:.0f}px approaches the {TILE}-px '
+                             f'rasterizer tile at {self.uv_resolution}px')
 
     # --------------------------------------------------------------- mapping
     def mapping(self, z, c, truncation_psi=1, truncation_cutoff=None):
@@ -172,13 +192,16 @@ class TriPlaneGenerator(nn.Module):
     def rasterize(self, v, lms, textures):
         """4 orthographic views folded into the batch axis (reference
         :190-230). Returns ([front, side, top] feature images, [alphas],
-        front-view 2D landmarks)."""
+        front-view 2D landmarks). No gradient flows through the (u, v) grid
+        or the alpha (JAX :307-308)."""
         N = v.shape[0]
         V = len(RENDERING_VIEWS)
         tv, tl = self.project_views(v, lms)
         res = self.uv_resolution
-        rendering = rasterize_uv_with_alpha(tv, self.faces, self.face_uv[None],
-                                            res)           # (V*N, 3, H, W)
+        rendering = rasterize_uv_with_alpha(
+            tv, self.faces, self.face_uv[None], res,
+            patch=self.rasterizer_patch,
+            impl=self.rasterizer_impl).detach()           # (V*N, 3, H, W)
         alpha = rendering[:, -1:]
         grid = rendering.permute(0, 2, 3, 1)[..., :2]
         # the views fold into the grid, not the texture batch: the texture

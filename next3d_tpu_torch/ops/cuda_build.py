@@ -36,23 +36,43 @@ def _nvcc():
     return nvcc
 
 
+def _library(name):
+    src = CSRC / f'{name}.cu'
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return src, BUILD / f'lib{name}_{digest}.so'
+
+
+def build_all(names):
+    """Compile the missing libraries of ``names``, one ``nvcc`` process per
+    source, all started together; returns their paths in order."""
+    libs = [_library(name) for name in names]
+    running = []
+    for src, so in libs:
+        if so.exists():
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((src, so, tmp, proc))
+    failed = []
+    for src, so, tmp, proc in running:
+        out, _ = proc.communicate()
+        so.with_suffix('.log').write_text(out)
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed on {src.name}:\n{out}')
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return [so for _, so in libs]
+
+
 def build(name):
     """Compile ``csrc/<name>.cu`` if its library is missing; returns the
     library's path."""
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = BUILD / f'lib{name}_{digest}.so'
-    if so.exists():
-        return so
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
-                          capture_output=True, text=True)
-    so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed on {src.name}:\n{proc.stderr}')
-    os.replace(tmp, so)
-    return so
+    return build_all([name])[0]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,18 +1,21 @@
-"""K1: the binned UV-emitting triangle rasterizer.
+"""K1, K2 and K3: the binned triangle rasterizers.
 
-Counterpart of next3d_tpu/ops/pallas_raster.py
-rasterize_mesh_pallas_binned_uv. ``binned_uv_prep`` bins the faces as the
-JAX prep does (``_binned_uv_entries``, ``_binned_prep``): per-face affine
-edge/z/u/v coefficients, up to 4 bbox-corner entries per face in 32-px
-tiles, a stable sort by tile id and the segment starts.
-``rasterize_binned_uv`` then resolves every pixel of every tile against its
-tile's segment: on a CUDA tensor with the kernel in
+Counterparts of next3d_tpu/ops/pallas_raster.py
+rasterize_mesh_pallas_binned_uv (K1), rasterize_mesh_pallas_binned (K2) and
+rasterize_mesh_pallas_binned_uv16 (K3). ``binned_prep`` bins the faces as
+the JAX prep does (``_binned_uv_entries``, ``_binned_uv_entries16``,
+``_binned_prep``): per-face affine edge/z coefficients, with (u, v) for K1
+and K3 or without for K2, the tile entries of each face, a stable sort by
+tile id and the segment starts. The entry rule follows the tile: at 32 px
+the 4 bbox-corner tiles, at 16 px the 3x3 tile rectangle from the
+bbox-min tile. The resolve then tests every pixel of every tile against its
+tile's segment: on a CUDA tensor with the kernels in
 ``csrc/raster_binned_uv.cu``, on a CPU tensor with the plain version below,
 which uses the same arithmetic and tie rule.
 
-Exactness: a face's bbox must span less than 32 px, so that its 4 corner
-entries reach every tile it overlaps (the model checks this for its
-topology at construction).
+Exactness: a face's bbox must span less than 32 px, so that its entries
+reach every tile it overlaps (the model checks this for its topology at
+construction). K1, K2 and K3 then agree with each other bit for bit.
 """
 
 from __future__ import annotations
@@ -24,26 +27,35 @@ import torch
 from . import cuda_build
 
 TILE = 32
+TILE16 = 16
 BIG_Z = 1e10
 NO_FACE = float(2 ** 30)
-N_COEFF = 19  # b0c b0x b0y b1c b1x b1y b2c b2x b2y zc zx zy uc ux uy vc vx vy fid
+# coefficient rows: b0c b0x b0y b1c b1x b1y b2c b2x b2y zc zx zy, then
+# uc ux uy vc vx vy with (u, v), then fid
+N_COEFF = 19
+N_COEFF_Z = 13  # without (u, v)
 PLAIN_CHUNK_ELEMS = 1 << 24  # (tile, candidate, pixel) triples per plain step
 
 
-def binned_uv_prep(verts, faces, face_attrs, image_size):
+def binned_prep(verts, faces, face_attrs, image_size, tile=TILE):
     """verts (B, V, 3) with x, y in [-1, 1]; faces (F, 3) int; face_attrs
-    (B or 1, F, 3, 2) per-corner (u, v).
+    (B or 1, F, 3, 2) per-corner (u, v), or None for the depth payload;
+    tile 32 or 16.
 
-    Returns slab (B, 19, 4F) float32, the coefficient rows of the entries in
-    tile order, and starts (B, T + 1) int32, the segment bounds per tile.
+    Returns slab (B, K, E) float32, the K coefficient rows (19 with (u, v),
+    13 without) of the E = 4F (tile 32) or 9F (tile 16) entries in tile
+    order, and starts (B, T + 1) int32, the segment bounds per tile.
     """
     B = verts.shape[0]
     F = faces.shape[0]
     H = W = image_size
-    if H % TILE:
-        raise ValueError(f'image_size {H} is not a multiple of {TILE}')
-    Tx = W // TILE
-    T = Tx * (H // TILE)
+    if tile not in (TILE, TILE16):
+        raise ValueError(f'tile {tile} is neither {TILE} nor {TILE16}')
+    if H % tile:
+        raise ValueError(f'image_size {H} is not a multiple of {tile}')
+    Tx = W // tile
+    Ty = H // tile
+    T = Tx * Ty
     faces = faces.long()
     verts = verts.detach().float()
 
@@ -74,142 +86,209 @@ def binned_uv_prep(verts, faces, face_attrs, image_size):
                 b0x * a0 + b1x * a1 + b2x * a2,
                 b0y * a0 + b1y * a1 + b2y * a2)
 
-    zc, zx, zy = affine(z0, z1, z2)
-    fa = face_attrs.detach().float().expand(B, F, 3, 2)
-    uc, ux, uy = affine(fa[..., 0, 0], fa[..., 1, 0], fa[..., 2, 0])
-    vc, vx, vy = affine(fa[..., 0, 1], fa[..., 1, 1], fa[..., 2, 1])
+    rows = [*affine(z0, z1, z2)]
+    if face_attrs is not None:
+        fa = face_attrs.detach().float().expand(B, F, 3, 2)
+        rows += affine(fa[..., 0, 0], fa[..., 1, 0], fa[..., 2, 0])
+        rows += affine(fa[..., 0, 1], fa[..., 1, 1], fa[..., 2, 1])
     b0c = torch.where(keep, b0c, torch.full_like(b0c, -float('inf')))
     fid = torch.arange(F, dtype=torch.float32,
                        device=verts.device).expand(B, F)
     coeffs = torch.stack([b0c, b0x, b0y, b1c, b1x, b1y, b2c, b2x, b2y,
-                          zc, zx, zy, uc, ux, uy, vc, vx, vy, fid], dim=-1)
+                          *rows, fid], dim=-1)              # (B, F, K)
 
     def tile_of(v, n):
-        return torch.clamp(torch.floor(v / TILE), 0, n - 1).long()
+        return torch.clamp(torch.floor(v / tile), 0, n - 1).long()
 
     txlo = tile_of(torch.minimum(torch.minimum(x0, x1), x2), Tx)
     txhi = tile_of(torch.maximum(torch.maximum(x0, x1), x2), Tx)
-    tylo = tile_of(torch.minimum(torch.minimum(y0, y1), y2), H // TILE)
-    tyhi = tile_of(torch.maximum(torch.maximum(y0, y1), y2), H // TILE)
+    tylo = tile_of(torch.minimum(torch.minimum(y0, y1), y2), Ty)
+    tyhi = tile_of(torch.maximum(torch.maximum(y0, y1), y2), Ty)
     dummy = torch.full_like(txlo, T)
-    e00 = tylo * Tx + txlo
-    e01 = torch.where(txhi > txlo, tylo * Tx + txhi, dummy)
-    e10 = torch.where(tyhi > tylo, tyhi * Tx + txlo, dummy)
-    e11 = torch.where((txhi > txlo) & (tyhi > tylo), tyhi * Tx + txhi, dummy)
-    tids = torch.stack([e00, e01, e10, e11], dim=-1)         # (B, F, 4)
-    tids = torch.where(keep[..., None], tids, T).reshape(B, 4 * F)
+    if tile == TILE:
+        # the 4 bbox-corner tiles, duplicates routed to the dummy tile T
+        e00 = tylo * Tx + txlo
+        e01 = torch.where(txhi > txlo, tylo * Tx + txhi, dummy)
+        e10 = torch.where(tyhi > tylo, tyhi * Tx + txlo, dummy)
+        e11 = torch.where((txhi > txlo) & (tyhi > tylo), tyhi * Tx + txhi,
+                          dummy)
+        tids = torch.stack([e00, e01, e10, e11], dim=-1)     # (B, F, 4)
+    else:
+        # the 3x3 tile rectangle from the bbox-min tile, cut to the bbox
+        tids = torch.stack([
+            torch.where((txlo + dx <= txhi) & (tylo + dy <= tyhi),
+                        (tylo + dy) * Tx + txlo + dx, dummy)
+            for dy in range(3) for dx in range(3)], dim=-1)  # (B, F, 9)
+    n_entries = tids.shape[-1]
+    tids = torch.where(keep[..., None], tids, T).reshape(B, n_entries * F)
 
     tids_sorted, order = torch.sort(tids, dim=1, stable=True)
-    face_of = (order // 4)[..., None].expand(B, 4 * F, N_COEFF)
+    K = coeffs.shape[-1]
+    face_of = (order // n_entries)[..., None].expand(B, n_entries * F, K)
     slab = coeffs.gather(1, face_of).transpose(1, 2).contiguous()
     bounds = torch.arange(T + 1, device=verts.device).expand(B, T + 1)
     starts = torch.searchsorted(tids_sorted, bounds.contiguous())
     return slab, starts.to(torch.int32)
 
 
-def _resolve_plain(slab, starts, image_size):
+def _resolve_plain(slab, starts, image_size, tile):
     """Plain torch resolve: per tile, a dense (candidates x pixels)
-    evaluation with the kernel's arithmetic and tie rule, tiles in chunks
-    of at most PLAIN_CHUNK_ELEMS (tile, candidate, pixel) triples."""
+    evaluation with the kernels' arithmetic and tie rule, tiles in chunks
+    of at most PLAIN_CHUNK_ELEMS (tile, candidate, pixel) triples (one tile
+    a chunk where a segment alone is longer).
+
+    Returns (pix_to_face, u, v) for a 19-row slab and (pix_to_face, zbuf)
+    for a 13-row one, each (B, H, W)."""
     B, K, E = slab.shape
     H = W = image_size
-    Tx = W // TILE
-    T = Tx * (H // TILE)
-    P = TILE * TILE
+    Tx = W // tile
+    T = Tx * (H // tile)
+    P = tile * tile
+    with_uv = K == N_COEFF
     dev = slab.device
     pf = torch.full((B * T, P), -1, dtype=torch.int32, device=dev)
-    u_out = torch.zeros((B * T, P), dtype=torch.float32, device=dev)
-    v_out = torch.zeros((B * T, P), dtype=torch.float32, device=dev)
+    if with_uv:
+        outs = [torch.zeros((B * T, P), dtype=torch.float32, device=dev)
+                for _ in range(2)]
+    else:
+        outs = [torch.full((B * T, P), BIG_Z, dtype=torch.float32,
+                           device=dev)]
 
     first = starts[:, :-1].reshape(-1).long()
     count = (starts[:, 1:] - starts[:, :-1]).reshape(-1).long()
-    L = int(count.max())
-    if L > 0:
-        rows = slab.transpose(1, 2).reshape(B * E, K)
-        bt = torch.arange(B * T, device=dev)
-        pix = torch.arange(P, device=dev)
-        gx = (((bt % T) % Tx) * TILE)[:, None] + pix % TILE    # (BT, P)
-        gy = (((bt % T) // Tx) * TILE)[:, None] + pix // TILE
+    rows = slab.transpose(1, 2).reshape(B * E, K)
+    pix = torch.arange(P, device=dev)
+    # tiles by falling segment length, so that a chunk pads its candidates
+    # only to its own longest segment; empty tiles keep the initial values
+    order = torch.argsort(count, descending=True)
+    lengths = count[order].tolist()
+    c0 = 0
+    while c0 < B * T and lengths[c0] > 0:
+        L = lengths[c0]
+        bt = order[c0:c0 + max(1, PLAIN_CHUNK_ELEMS // (L * P))]
+        c0 += bt.numel()
+        gx = (((bt % T) % Tx) * tile)[:, None] + pix % tile     # (c, P)
+        gy = (((bt % T) // Tx) * tile)[:, None] + pix // tile
         gx, gy = gx.float(), gy.float()
         lane = torch.arange(L, device=dev)
-        chunk = max(1, PLAIN_CHUNK_ELEMS // (L * P))
-        for c0 in range(0, B * T, chunk):
-            sl = slice(c0, c0 + chunk)
-            valid = lane[None] < count[sl, None]                # (c, L)
-            idx = torch.where(valid, first[sl, None] + lane[None], 0)
-            cf = rows[(bt[sl] // T * E)[:, None] + idx]         # (c, L, K)
-            cx, cy = gx[sl, None], gy[sl, None]                 # (c, 1, P)
+        valid = lane[None] < count[bt, None]                    # (c, L)
+        idx = torch.where(valid, first[bt, None] + lane[None], 0)
+        cf = rows[(bt // T * E)[:, None] + idx]                 # (c, L, K)
+        cx, cy = gx[:, None], gy[:, None]                       # (c, 1, P)
 
-            def aff(j):
-                return (cf[..., j, None] + cf[..., j + 1, None] * cx) \
-                    + cf[..., j + 2, None] * cy                 # (c, L, P)
+        def aff(j):
+            return (cf[..., j, None] + cf[..., j + 1, None] * cx) \
+                + cf[..., j + 2, None] * cy                     # (c, L, P)
 
-            inside = (aff(0) >= 0) & (aff(3) >= 0) & (aff(6) >= 0) \
-                & valid[..., None]
-            z = torch.where(inside, aff(9), BIG_Z)
-            zmin = torch.clamp(z.min(dim=1).values, max=BIG_Z)  # (c, P)
-            fid = torch.where(inside & (z == zmin[:, None]),
-                              cf[..., 18, None], NO_FACE)
-            fmin = fid.min(dim=1).values
-            hit = fmin < NO_FACE
-            # a face has at most one entry per tile, so (z, fid) names one lane
-            win = (fid == fmin[:, None]).float().argmax(dim=1)  # (c, P)
-            sel = cf.gather(1, win[..., None].expand(-1, -1, K))  # (c, P, K)
-            u = (sel[..., 12] + sel[..., 13] * gx[sl]) + sel[..., 14] * gy[sl]
-            v = (sel[..., 15] + sel[..., 16] * gx[sl]) + sel[..., 17] * gy[sl]
-            pf[sl] = torch.where(hit, fmin, -1.0).to(torch.int32)
-            u_out[sl] = torch.where(hit, u, 0.0)
-            v_out[sl] = torch.where(hit, v, 0.0)
+        inside = (aff(0) >= 0) & (aff(3) >= 0) & (aff(6) >= 0) \
+            & valid[..., None]
+        z = torch.where(inside, aff(9), BIG_Z)
+        zmin = torch.clamp(z.min(dim=1).values, max=BIG_Z)      # (c, P)
+        fid = torch.where(inside & (z == zmin[:, None]),
+                          cf[..., K - 1, None], NO_FACE)
+        fmin = fid.min(dim=1).values
+        hit = fmin < NO_FACE
+        pf[bt] = torch.where(hit, fmin, -1.0).to(torch.int32)
+        if not with_uv:
+            outs[0][bt] = zmin
+            continue
+        # a face has at most one entry per tile, so (z, fid) names one lane
+        win = (fid == fmin[:, None]).float().argmax(dim=1)      # (c, P)
+        sel = cf.gather(1, win[..., None].expand(-1, -1, K))    # (c, P, K)
+        u = (sel[..., 12] + sel[..., 13] * gx) + sel[..., 14] * gy
+        v = (sel[..., 15] + sel[..., 16] * gx) + sel[..., 17] * gy
+        outs[0][bt] = torch.where(hit, u, 0.0)
+        outs[1][bt] = torch.where(hit, v, 0.0)
 
     def image(a):
-        return a.reshape(B, H // TILE, Tx, TILE, TILE).permute(
+        return a.reshape(B, H // tile, Tx, tile, tile).permute(
             0, 1, 3, 2, 4).reshape(B, H, W)
 
-    return image(pf), image(u_out), image(v_out)
+    return (image(pf), *(image(o) for o in outs))
 
 
-def _resolve_cuda(slab, starts, image_size):
+def _resolve_cuda(slab, starts, image_size, tile, counted):
+    """Launch the instance of csrc/raster_binned_uv.cu for this tile and
+    payload; ``counted`` is the public wrapper whose launch count grows."""
     B, K, E = slab.shape
     H = W = image_size
-    T = (W // TILE) * (H // TILE)
-    if slab.dtype != torch.float32 or not slab.is_contiguous() \
-            or K != N_COEFF:
-        raise ValueError(f'slab must be contiguous float32 (B, {N_COEFF}, E)')
+    T = (W // tile) * (H // tile)
+    entry = {(TILE, N_COEFF): 'raster_binned_uv',
+             (TILE16, N_COEFF): 'raster_binned_uv16',
+             (TILE, N_COEFF_Z): 'raster_binned'}.get((tile, K))
+    if entry is None or slab.dtype != torch.float32 \
+            or not slab.is_contiguous():
+        raise ValueError(f'slab must be contiguous float32 (B, {N_COEFF}, E) '
+                         f'or, at tile {TILE}, (B, {N_COEFF_Z}, E)')
     if starts.dtype != torch.int32 or not starts.is_contiguous() \
             or starts.shape != (B, T + 1) or starts.device != slab.device:
         raise ValueError(f'starts must be contiguous int32 ({B}, {T + 1}) '
                          f'on {slab.device}')
     pf = torch.empty((B, H, W), dtype=torch.int32, device=slab.device)
-    u = torch.empty((B, H, W), dtype=torch.float32, device=slab.device)
-    v = torch.empty((B, H, W), dtype=torch.float32, device=slab.device)
-    fn = cuda_build.load('raster_binned_uv').raster_binned_uv
+    outs = [torch.empty((B, H, W), dtype=torch.float32, device=slab.device)
+            for _ in range(2 if K == N_COEFF else 1)]
+    fn = getattr(cuda_build.load('raster_binned_uv'), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     with torch.cuda.device(slab.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(slab.data_ptr(), starts.data_ptr(), pf.data_ptr(),
-                    u.data_ptr(), v.data_ptr(), B, E, H, W, stream)
+                    outs[0].data_ptr(),
+                    outs[1].data_ptr() if len(outs) == 2 else None,
+                    B, E, H, W, stream)
     cuda_build.check('raster_binned_uv', status)
-    rasterize_binned_uv.launches += 1
-    return pf, u, v
+    counted.launches += 1
+    return (pf, *outs)
+
+
+def _rasterize(counted, verts, faces, face_attrs, image_size, tile):
+    slab, starts = binned_prep(verts, faces, face_attrs, image_size, tile)
+    if slab.is_cuda:
+        return _resolve_cuda(slab, starts, image_size, tile, counted)
+    return _resolve_plain(slab, starts, image_size, tile)
 
 
 def rasterize_binned_uv(verts, faces, face_attrs, image_size):
-    """Returns (pix_to_face (B, H, W) int32, -1 where empty; u, v (B, H, W)
-    float32, 0 where empty). Launches the CUDA kernel for CUDA tensors and
-    runs the plain version for CPU tensors. Not differentiable."""
-    slab, starts = binned_uv_prep(verts, faces, face_attrs, image_size)
-    if slab.is_cuda:
-        return _resolve_cuda(slab, starts, image_size)
-    return _resolve_plain(slab, starts, image_size)
+    """K1. Returns (pix_to_face (B, H, W) int32, -1 where empty; u, v
+    (B, H, W) float32, 0 where empty). Launches the CUDA kernel for CUDA
+    tensors and runs the plain version for CPU tensors. Not
+    differentiable."""
+    return _rasterize(rasterize_binned_uv, verts, faces, face_attrs,
+                      image_size, TILE)
+
+
+def rasterize_binned_uv16(verts, faces, face_attrs, image_size):
+    """K3: K1's contract and results, resolved in 16-px tiles."""
+    return _rasterize(rasterize_binned_uv16, verts, faces, face_attrs,
+                      image_size, TILE16)
+
+
+def rasterize_binned(verts, faces, image_size):
+    """K2: K1's visibility. Returns (pix_to_face (B, H, W) int32, -1 where
+    empty; zbuf (B, H, W) float32, 1e10 where no face covers the pixel)."""
+    return _rasterize(rasterize_binned, verts, faces, None, image_size, TILE)
 
 
 rasterize_binned_uv.launches = 0
+rasterize_binned_uv16.launches = 0
+rasterize_binned.launches = 0
 
 
 def rasterize_binned_uv_plain(verts, faces, face_attrs, image_size):
-    """The plain torch version on any device (the reference the kernel is
+    """K1's plain torch version on any device (the reference the kernel is
     held against)."""
-    slab, starts = binned_uv_prep(verts, faces, face_attrs, image_size)
-    return _resolve_plain(slab, starts, image_size)
+    slab, starts = binned_prep(verts, faces, face_attrs, image_size)
+    return _resolve_plain(slab, starts, image_size, TILE)
+
+
+def rasterize_binned_uv16_plain(verts, faces, face_attrs, image_size):
+    """K3's plain torch version on any device."""
+    slab, starts = binned_prep(verts, faces, face_attrs, image_size, TILE16)
+    return _resolve_plain(slab, starts, image_size, TILE16)
+
+
+def rasterize_binned_plain(verts, faces, image_size):
+    """K2's plain torch version on any device."""
+    slab, starts = binned_prep(verts, faces, None, image_size)
+    return _resolve_plain(slab, starts, image_size, TILE)

@@ -37,9 +37,10 @@ def create_cam2world_matrix(forward_vector, origin):
 
 
 def lookat_pose(horizontal_mean, vertical_mean, lookat_position, radius=1,
-                batch_size=1, device='cpu'):
+                batch_size=1, device='cuda'):
     """LookAtPoseSampler.sample without jitter (reference:
-    camera_utils.py:68-86): (batch_size, 4, 4) cam2world."""
+    camera_utils.py:68-86): (batch_size, 4, 4) cam2world on ``device`` (the
+    card unless the caller asks for the CPU)."""
     h = torch.full((batch_size, 1), float(horizontal_mean), device=device)
     v = torch.full((batch_size, 1), float(vertical_mean), device=device)
     v = v.clamp(1e-5, math.pi - 1e-5)

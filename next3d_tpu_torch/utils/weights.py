@@ -2,9 +2,9 @@
 
 The JAX package names its parameters by torch ``state_dict`` paths, one
 path component per dict level, so flattening a tree with
-``next3d_tpu.utils.pkl_import.params_to_state_dict`` (numpy only) gives the
-port's state_dict keys. Static FIR filters are non-persistent buffers that
-the port builds itself, so they are neither expected nor loaded.
+``params_to_state_dict`` gives the port's state_dict keys. Static FIR
+filters are non-persistent buffers that the port builds itself, so they
+are neither expected nor loaded.
 """
 
 from __future__ import annotations
@@ -12,7 +12,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from next3d_tpu.utils.pkl_import import params_to_state_dict
+
+def params_to_state_dict(params, prefix=''):
+    """Flatten a nested parameter tree to dotted names (the port's copy of
+    next3d_tpu/utils/pkl_import.py params_to_state_dict)."""
+    out = {}
+    for k, v in params.items():
+        name = f'{prefix}.{k}' if prefix else k
+        if isinstance(v, dict):
+            out.update(params_to_state_dict(v, name))
+        else:
+            out[name] = np.asarray(v)
+    return out
 
 
 def load_jax_params(module, params):

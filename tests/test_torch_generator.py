@@ -7,7 +7,10 @@ in-repo synthetic head.
 The port runs K1's and K4's plain versions; the JAX side rasterizes with
 its exact scatter golden (rasterizer_impl='scatter'). Bounds: the fp32
 full-scale parity gate of ROADMAP.md, max-abs 2e-3 and mean-abs 1e-4 on
-image, image_raw and image_depth.
+image, image_raw and image_depth. The port's other rasterizers run the same
+slice: 'pallas_binned16' (K3) must give the default forward bit for bit,
+and 'pallas' (K5, then the barycentric interpolation) must meet the same
+gate against the same JAX forward.
 
 Where two faces tie in depth to within float32 rounding (or an edge
 passes through a pixel centre), the scatter golden, which evaluates its
@@ -31,6 +34,7 @@ from next3d_tpu.models import TriPlaneGenerator as JaxGenerator
 from next3d_tpu.render import camera_utils
 from next3d_tpu.render.rasterizer import rasterize_mesh
 from next3d_tpu_torch.ops.raster import rasterize_binned_uv
+from next3d_tpu_torch.ops.raster_zbuffer import rasterize_zbuffer
 from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 from next3d_tpu_torch.utils.weights import load_jax_params
@@ -86,23 +90,25 @@ def pair():
         ws = port.mapping(t(z), t(c), truncation_psi=0.7,
                           truncation_cutoff=14)
         out = port.synthesis(ws, t(c), t(v), noise_mode='const')
-    return jg, params, port, z, c, v, ws, out
-
-
-def test_forward_matches_jax(pair):
-    jg, params, port, z, c, v, _, got = pair
-    with torch.no_grad():
-        tv, _ = port.project_views(t(v[:, :5023]), t(v[:, 5023:]))
-        pf = rasterize_binned_uv(tv, port.faces, port.face_uv[None], 128)[0]
-    pf_golden = rasterize_mesh(jnp.asarray(n(tv)), jnp.asarray(jg.faces), 128,
-                               patch=16)[0]
-    np.testing.assert_array_equal(n(pf), n(pf_golden))
 
     def forward(p, z, c, v):
         ws = jg.mapping(p, z, c, truncation_psi=0.7, truncation_cutoff=14)
         return jg.synthesis(p, ws, c, v, noise_mode='const')
 
     want = jax.jit(forward)(params, z, c, v)
+    return jg, params, port, z, c, v, ws, out, want
+
+
+def _golden_pix_to_face(jg, port, v):
+    """The JAX scatter golden's visibility of the port's 4-view projection."""
+    with torch.no_grad():
+        tv, _ = port.project_views(t(v[:, :5023]), t(v[:, 5023:]))
+    pf = rasterize_mesh(jnp.asarray(n(tv)), jnp.asarray(jg.faces), 128,
+                        patch=16)[0]
+    return tv, n(pf)
+
+
+def _assert_gate(got, want):
     shapes = {'image': (2, 3, 128, 128), 'image_raw': (2, 3, 64, 64),
               'image_depth': (2, 1, 64, 64)}
     for key, shape in shapes.items():
@@ -111,14 +117,53 @@ def test_forward_matches_jax(pair):
         err = np.abs(a - b)
         print(f'{key}: max-abs {err.max():.3g} mean-abs {err.mean():.3g}')
         assert err.max() <= 2e-3 and err.mean() <= 1e-4, key
+
+
+def _variant(pair, impl):
+    """The port's generator with another rasterizer, on the same weights."""
+    _, params, _, z, c, v, ws, _, _ = pair
+    mesh, _ = synthetic_head()
+    port = TriPlaneGenerator(topology_path=mesh, rasterizer_impl=impl,
+                             **CFG).eval()
+    load_jax_params(port, params)
+    with torch.no_grad():
+        return port, port.synthesis(ws, t(c), t(v), noise_mode='const')
+
+
+def test_forward_matches_jax(pair):
+    jg, params, port, z, c, v, _, got, want = pair
+    tv, pf_golden = _golden_pix_to_face(jg, port, v)
+    with torch.no_grad():
+        pf = rasterize_binned_uv(tv, port.faces, port.face_uv[None], 128)[0]
+    np.testing.assert_array_equal(n(pf), pf_golden)
+    _assert_gate(got, want)
     # clamped to the sample range: midpoint jitter puts the last sample
     # half a bin past ray_end
     depth = n(got['image_depth'])
     assert np.all((depth >= 2.25) & (depth <= 3.3 + 1.05 / 7 / 2))
 
 
+def test_binned16_forward_equals_binned(pair):
+    port, got = _variant(pair, 'pallas_binned16')
+    assert port.rasterizer_impl == 'pallas_binned16'
+    for key, want in pair[7].items():
+        assert torch.equal(got[key], want), key
+
+
+def test_zbuffer_forward_matches_jax(pair):
+    """'pallas': K5's visibility equals the golden's on all 8 images (the
+    same edge arithmetic), then the gate."""
+    jg, *_, want = pair
+    port, got = _variant(pair, 'pallas')
+    tv, pf_golden = _golden_pix_to_face(jg, port, pair[5])
+    np.testing.assert_array_equal(
+        n(rasterize_zbuffer(tv, port.faces, 128, port.rasterizer_patch)[0]),
+        pf_golden)
+    _assert_gate(got, want)
+
+
 def test_synthesis_from_identity_matches_synthesis(pair):
-    _, _, port, _, c, v, ws, full = pair
+    _, _, port, _, c, v, ws, full, _ = pair
     with torch.no_grad():
         textures, static = port.build_identity(ws, noise_mode='const')
         cached = port.synthesis_from_identity(ws, textures, static, t(c),

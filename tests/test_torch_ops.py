@@ -172,7 +172,7 @@ def test_mesh_helpers(rng):
 
 def _camera(h=math.pi / 2, v=math.pi / 2, n_rays=16):
     jc2w = jcam.lookat_pose(h, v, jnp.asarray([0, 0, 0.2]), radius=2.7)
-    tc2w = tcam.lookat_pose(h, v, [0, 0, 0.2], radius=2.7)
+    tc2w = tcam.lookat_pose(h, v, [0, 0, 0.2], radius=2.7, device='cpu')
     np.testing.assert_allclose(n(tc2w), n(jc2w), rtol=1e-6, atol=1e-6)
     K = jcam.fov_to_intrinsics(18.837)
     np.testing.assert_array_equal(tcam.fov_to_intrinsics(18.837), K)

@@ -13,7 +13,7 @@ import torch
 from next3d_tpu.ops.pallas_raster import rasterize_mesh_pallas_binned_uv
 from next3d_tpu.render.mesh import angle2matrix
 from next3d_tpu.render.rasterizer import rasterize_mesh, required_patch_size
-from next3d_tpu_torch.ops.raster import (binned_uv_prep, rasterize_binned_uv,
+from next3d_tpu_torch.ops.raster import (binned_prep, rasterize_binned_uv,
                                          rasterize_binned_uv_plain)
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 
@@ -64,9 +64,9 @@ def test_plain_matches_scatter_golden():
 
 def test_prep_bins_every_kept_face_once_per_tile():
     verts, faces, attrs, H = _head_views(3)
-    slab, starts = binned_uv_prep(torch.from_numpy(verts),
-                                  torch.from_numpy(faces),
-                                  torch.from_numpy(attrs), H)
+    slab, starts = binned_prep(torch.from_numpy(verts),
+                               torch.from_numpy(faces),
+                               torch.from_numpy(attrs), H)
     T = (H // 32) ** 2
     assert slab.shape == (2, 19, 4 * len(faces))
     assert starts.shape == (2, T + 1) and starts.dtype == torch.int32
@@ -79,19 +79,12 @@ def test_prep_bins_every_kept_face_once_per_tile():
             assert len(torch.unique(fids)) == len(fids)
 
 
-
-def test_four_views_match_jax_kernel_and_scatter():
-    """The flagship's own rasterizer input: a jittered expression of the
-    head through the 4 orthographic views at the init orth scale and shift
-    (TriPlaneGenerator.rasterize), 256^2, with the model's face UVs. The
-    JAX kernel in interpret mode rounds K1's affine evaluations in another
-    order than the port, and the scatter golden evaluates them in another
-    form, so a few pixels differ: held at >= 99.98% agreement, the bound of
-    tests/test_rasterizer.py:181-206, each differing pixel shown in float64
-    to be a float32 rounding tie (an edge through the pixel centre, or two
-    covering faces at one depth), and (u, v) where the face agrees."""
+def _four_views(seed):
+    """A jittered expression of the head through the flagship's 4
+    orthographic views at the init orth scale and shift
+    (TriPlaneGenerator.rasterize), with the model's face UVs."""
     mesh, _ = synthetic_head()
-    rng = np.random.RandomState(6)
+    rng = np.random.RandomState(seed)
     v = (mesh.verts + rng.randn(*mesh.verts.shape) * 0.002).astype(np.float32)
     tforms = np.stack([np.asarray(angle2matrix(jnp.asarray([a], jnp.float32)))[0]
                        for a in ((0, 0, 0), (0, 90, 0), (0, -90, 0), (90, 0, 0))])
@@ -103,6 +96,20 @@ def test_four_views_match_jax_kernel_and_scatter():
     uv = mesh.verts_uvs[mesh.faces_uvs] * 2 - 1
     uv[..., 1] *= -1
     attrs = uv[None][:, :, [0, 2, 1]].astype(np.float32)
+    return tv, faces, attrs
+
+
+def test_four_views_match_jax_kernel_and_scatter():
+    """The flagship's own rasterizer input: a jittered expression of the
+    head through the 4 orthographic views at the init orth scale and shift
+    (TriPlaneGenerator.rasterize), 256^2, with the model's face UVs. The
+    JAX kernel in interpret mode rounds K1's affine evaluations in another
+    order than the port, and the scatter golden evaluates them in another
+    form, so a few pixels differ: held at >= 99.98% agreement, the bound of
+    tests/test_rasterizer.py:181-206, each differing pixel shown in float64
+    to be a float32 rounding tie (an edge through the pixel centre, or two
+    covering faces at one depth), and (u, v) where the face agrees."""
+    tv, faces, attrs = _four_views(6)
     pf, u, _ = (a.numpy() for a in rasterize_binned_uv(
         torch.from_numpy(tv), torch.from_numpy(faces),
         torch.from_numpy(attrs), 256))

@@ -1,0 +1,219 @@
+"""K2, K3, K5 and K6 (plain versions, CPU) and the port's
+``interpolate_face_attributes`` against the JAX package: its Pallas kernels
+in interpret mode, its scatter golden and its interpolation, on the in-repo
+synthetic head and on the random meshes of tests/test_rasterizer.py.
+
+The kernels themselves run only on a GPU: tests/test_torch_cuda.py and
+chip_smoke.py hold each against its plain version there."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from next3d_tpu.ops.pallas_dma_gather import dma_gather_row_blocks
+from next3d_tpu.ops.pallas_raster import (rasterize_mesh_pallas,
+                                          rasterize_mesh_pallas_binned,
+                                          rasterize_mesh_pallas_binned_uv16)
+from next3d_tpu.render import rasterizer as jax_rasterizer
+from next3d_tpu.render.rasterizer import rasterize_mesh
+from next3d_tpu_torch.ops.dma_gather import (gather_row_blocks,
+                                             gather_row_blocks_plain)
+from next3d_tpu_torch.ops.raster import (rasterize_binned,
+                                         rasterize_binned_plain,
+                                         rasterize_binned_uv,
+                                         rasterize_binned_uv16,
+                                         rasterize_binned_uv16_plain)
+from next3d_tpu_torch.ops.raster_zbuffer import (rasterize_zbuffer,
+                                                 rasterize_zbuffer_plain)
+from next3d_tpu_torch.render.rasterizer import (interpolate_face_attributes,
+                                                rasterize_uv_with_alpha,
+                                                rasterize_with_attributes)
+
+from test_rasterizer import random_mesh
+from test_torch_raster import _head_views, _rounding_tie, _four_views
+from torch_parity import n, t
+
+EPS = float(np.finfo(np.float32).eps)
+
+
+def _assert_ties(pf, other, verts, faces, H, name):
+    """Every pixel where the two visibilities differ is a float32 rounding
+    tie, judged in float64 (tests/test_torch_raster.py _rounding_tie)."""
+    differ = np.nonzero(pf != other)
+    print(f'{name}: {len(differ[0])} of {pf.size} px differ')
+    for b, y, x in zip(*differ):
+        fids = (int(pf[b, y, x]), int(other[b, y, x]))
+        assert _rounding_tie(verts[b], faces, fids, x, y, H), (name, b, y, x)
+
+
+def _zplane(verts, faces, pf, H):
+    """At each covered pixel, the winning face's depth plane in float64 as
+    the binned kernels form it (z = sum_i z_i (c_i + gx_i x + gy_i y), with
+    c_i = ((yb - ya) xa - (xb - xa) ya) / area), and the magnitude of its
+    terms, which sets how far a float32 evaluation may round."""
+    b, y, x = np.nonzero(pf >= 0)
+    p = verts[b[:, None], faces[pf[b, y, x]]].astype(np.float64)  # (n, 3, 3)
+    px = (p[..., 0] + 1) * H / 2 - 0.5
+    py = (p[..., 1] + 1) * H / 2 - 0.5
+    area = (px[:, 1] - px[:, 0]) * (py[:, 2] - py[:, 0]) \
+        - (py[:, 1] - py[:, 0]) * (px[:, 2] - px[:, 0])
+    z = scale = 0
+    for i, (a, c) in enumerate(((1, 2), (2, 0), (0, 1))):
+        dy, dx = py[:, c] - py[:, a], px[:, c] - px[:, a]
+        w = (dy * px[:, a] - dx * py[:, a] - dy * x + dx * y) / area
+        terms = (np.abs(dy * px[:, a]) + np.abs(dx * py[:, a])
+                 + np.abs(dy * x) + np.abs(dx * y)) / np.abs(area)
+        z = z + w * p[:, i, 2]
+        scale = scale + terms * np.abs(p[:, i, 2])
+    return z, scale
+
+
+def test_k2_plain_matches_jax_kernel_interpret():
+    verts, faces, _, H = _head_views(7)
+    pf_j, z_j = (np.asarray(a) for a in rasterize_mesh_pallas_binned(
+        jnp.asarray(verts), jnp.asarray(faces), H, 8192, True))
+    pf, z = (n(a) for a in rasterize_binned(t(verts), t(faces), H))
+    assert pf.dtype == np.int32 and z.dtype == np.float32
+    assert pf.shape == z.shape == (2, H, H)
+    _assert_ties(pf, pf_j, verts, faces, H, 'K2 vs JAX K2 interpret')
+    assert np.all(z[pf < 0] == 1e10) and np.all(z_j[pf_j < 0] == 1e10)
+    # the depth plane's terms reach 1e3-1e5 on sliver faces, so the two
+    # float32 evaluations of one plane differ by far more than an ulp of
+    # z ~ 10 (median 17 ulp here); each stays within 1 eps of the terms of
+    # the float64 plane, so they agree within 2
+    assert np.array_equal(pf, pf_j)
+    want, scale = _zplane(verts, faces, pf, H)
+    cov = pf >= 0
+    for name, zz in (('port', z), ('JAX', z_j)):
+        err = np.abs(zz[cov] - want) / (EPS * scale)
+        print(f'K2 {name} zbuf vs float64: max {err.max():.3g} eps of terms')
+        assert err.max() <= 1
+    assert np.all(np.abs(z - z_j)[cov] <= 2 * EPS * scale)
+
+
+def test_k2_and_k3_plain_match_k1_plain():
+    """The flagship's 4-view batch at 256^2: K2's visibility equals K1's,
+    and K3 equals K1 bit for bit in pix_to_face, u and v (the same
+    coefficients and arithmetic; tests/test_rasterizer.py:296-322 asserts
+    the same of the JAX kernels). K2's zbuf is 1e10 exactly where K1 sees
+    no face."""
+    verts, faces, attrs = _four_views(6)
+    args = (t(verts), t(faces), t(attrs), 256)
+    k1 = rasterize_binned_uv(*args)
+    k3 = rasterize_binned_uv16(*args)
+    pf2, z2 = rasterize_binned(t(verts), t(faces), 256)
+    assert torch.equal(pf2, k1[0])
+    assert torch.equal(z2 == 1e10, k1[0] < 0)
+    for a, b in zip(k3, k1):
+        assert torch.equal(a, b)
+
+
+def test_k3_plain_matches_jax_kernel_interpret():
+    verts, faces, attrs, H = _head_views(8)
+    pf_j, u_j, v_j = (np.asarray(a) for a in rasterize_mesh_pallas_binned_uv16(
+        jnp.asarray(verts), jnp.asarray(faces), jnp.asarray(attrs), H,
+        8192, True))
+    pf, u, v = (n(a) for a in rasterize_binned_uv16_plain(
+        t(verts), t(faces), t(attrs), H))
+    _assert_ties(pf, pf_j, verts, faces, H, 'K3 vs JAX K3 interpret')
+    same = (pf == pf_j) & (pf >= 0)
+    # tolerance of tests/test_torch_raster.py (sliver faces)
+    np.testing.assert_allclose(u[same], u_j[same], rtol=1e-4, atol=2e-3)
+    np.testing.assert_allclose(v[same], v_j[same], rtol=1e-4, atol=2e-3)
+    assert np.all(u[pf < 0] == 0) and np.all(v[pf < 0] == 0)
+
+
+@pytest.mark.parametrize('seed,patch', [(0, 64), (1, 16), (2, 16)])
+def test_k5_plain_matches_jax_kernel_interpret(seed, patch):
+    """The random meshes of tests/test_rasterizer.py (B=2, up to 40 faces
+    spanning the 64^2 image). At patch 64 the stripe is the whole image; at
+    patch 16 it is 24 rows, so the tall faces are cut, as on the TPU.
+    pix_to_face is exact. zbuf (z in [1, 3]) agrees within 1e-5: the edge
+    functions' products reach 64^2 px^2, so XLA's and torch's roundings of
+    one barycentric differ by a few eps of that over the area."""
+    verts, faces = random_mesh(np.random.RandomState(seed), B=2, V=30, F=40)
+    H = 64
+    pf_j, z_j = (np.asarray(a) for a in rasterize_mesh_pallas(
+        jnp.asarray(verts), jnp.asarray(faces), H, patch, True))
+    pf, z = (n(a) for a in rasterize_zbuffer(t(verts), t(faces), H, patch))
+    np.testing.assert_array_equal(pf, pf_j)
+    np.testing.assert_allclose(z, z_j, rtol=0, atol=1e-5)
+    if patch == 16:
+        # the cut shows: the full-height golden covers more pixels
+        pf_s, _ = rasterize_mesh(jnp.asarray(verts), jnp.asarray(faces), H,
+                                 patch=80, face_chunk=16)
+        assert (np.asarray(pf_s) >= 0).sum() > (pf >= 0).sum()
+
+
+def test_k5_plain_matches_scatter_golden():
+    """The synthetic head at 128^2: K5 and the scatter golden share their
+    edge and depth arithmetic, so any pixel where they differ must be a
+    float32 rounding tie."""
+    verts, faces, _, H = _head_views(9)
+    pf_s = np.asarray(rasterize_mesh(jnp.asarray(verts), jnp.asarray(faces),
+                                     H, patch=32)[0])
+    pf, _ = rasterize_zbuffer_plain(t(verts), t(faces), H, patch=32)
+    _assert_ties(n(pf), pf_s, verts, faces, H, 'K5 vs scatter golden')
+    assert (n(pf) >= 0).mean() > 0.05
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_k6_plain_matches_jax_kernel_interpret(rng, dtype):
+    """tests/test_pallas_triplane.py:115's case, in float32 and in
+    bfloat16 (both sides round the same float32 table): exact."""
+    table = rng.randn(64, 128).astype(np.float32)
+    idx = rng.randint(0, 64, 96).astype(np.int32)
+    want = dma_gather_row_blocks(jnp.asarray(table).astype(dtype),
+                                 jnp.asarray(idx), tile=32, depth=4,
+                                 interpret=True)
+    got = gather_row_blocks(t(table).to(getattr(torch, dtype)), t(idx))
+    assert got.shape == (96, 8, 128) and got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(n(got.float()),
+                                  np.asarray(want.astype(jnp.float32)))
+    assert torch.equal(got, gather_row_blocks_plain(
+        t(table).to(getattr(torch, dtype)), t(idx)))
+    np.testing.assert_array_equal(n(got.float())[np.arange(96), idx % 8],
+                                  n(t(table).to(getattr(torch, dtype))
+                                    .float())[idx])
+
+
+def test_interpolate_face_attributes_matches_jax():
+    """The same pix_to_face (K2's) into both interpolations: within 1e-5
+    max-abs. The port's is differentiable in verts and attributes."""
+    verts, faces, _, H = _head_views(10)
+    rng = np.random.RandomState(10)
+    attrs = rng.randn(2, len(faces), 3, 3).astype(np.float32)
+    pf, _ = rasterize_binned(t(verts), t(faces), H)
+    want = np.asarray(jax_rasterizer.interpolate_face_attributes(
+        jnp.asarray(verts), jnp.asarray(faces), jnp.asarray(attrs),
+        jnp.asarray(n(pf)), H))
+    tv, ta = t(verts).requires_grad_(), t(attrs).requires_grad_()
+    got = interpolate_face_attributes(tv, t(faces), ta, pf, H)
+    assert got.shape == (2, 4, H, H)
+    err = np.abs(n(got) - want).max()
+    print(f'interpolate_face_attributes max-abs {err:.3g}')
+    assert err <= 1e-5
+    got[:, :3].square().sum().backward()
+    for g in (tv.grad, ta.grad):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+
+
+def test_impl_names():
+    """The JAX package's rasterizer_impl names: each ported one reaches its
+    kernel's plain version on the CPU; 'tiled' and 'scatter' raise."""
+    verts, faces, attrs, H = _head_views(11)
+    v, f, a = t(verts), t(faces), t(attrs)
+    k1 = rasterize_uv_with_alpha(v, f, a, H, impl='pallas_binned')
+    assert torch.equal(rasterize_uv_with_alpha(v, f, a, H), k1)
+    assert torch.equal(rasterize_uv_with_alpha(v, f, a, H,
+                                               impl='pallas_binned16'), k1)
+    k5 = rasterize_uv_with_alpha(v, f, a, H, patch=32, impl='pallas')
+    assert torch.equal(k5[:, 2] > 0, rasterize_zbuffer(v, f, H)[0] >= 0)
+    with_attrs = rasterize_with_attributes(v, f, a, H, impl='pallas_binned')
+    assert torch.equal(with_attrs[:, 2] > 0,
+                       rasterize_binned_plain(v, f, H)[0] >= 0)
+    for impl in ('tiled', 'scatter'):
+        with pytest.raises(ValueError, match='ROADMAP.md'):
+            rasterize_uv_with_alpha(v, f, a, H, impl=impl)

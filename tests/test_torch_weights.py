@@ -1,4 +1,6 @@
-"""The weight bridge and the port's import hygiene."""
+"""The weight bridge, the port's own copies of the JAX package's numpy
+helpers, and the port's import hygiene: it imports neither JAX nor any
+module of the JAX package."""
 
 import ast
 import os
@@ -12,8 +14,10 @@ import pytest
 import jax
 
 from next3d_tpu.models import TriPlaneGenerator as JaxGenerator
+from next3d_tpu.utils import obj_io as jax_obj_io
 from next3d_tpu.utils.pkl_import import params_to_state_dict
 from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
+from next3d_tpu_torch.utils import obj_io, weights
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 from next3d_tpu_torch.utils.weights import load_jax_params
 
@@ -49,31 +53,72 @@ def test_every_jax_param_lands_strictly():
         load_jax_params(port, tree)
 
 
+def test_params_to_state_dict_matches_jax_package():
+    tree = {'a': {'b': np.arange(3.0), 'c': {'d': np.ones((2, 2))}},
+            'e': np.float32(5)}
+    want = params_to_state_dict(tree)
+    got = weights.params_to_state_dict(tree)
+    assert list(got) == list(want) == ['a.b', 'a.c.d', 'e']
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_obj_io_matches_jax_package(tmp_path):
+    """A written .obj with UVs and a quad (split into a fan), one without
+    UVs, and a landmark file: the port's readers return what the JAX
+    package's do."""
+    path = tmp_path / 'mesh.obj'
+    path.write_text('# mesh\n'
+                    'v 0 0 0\nv 1 0 0\nv 1 1 0.5\nv 0 1 -0.25\n'
+                    'vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\n'
+                    'vn 0 0 1\n'
+                    'f 1/1/1 2/2/1 3/3/1\n'
+                    'f 1/1 3/3 4/4 2/2\n')
+    got, want = obj_io.load_obj(path), jax_obj_io.load_obj(path)
+    assert got.faces.shape == (3, 3)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+    bare = tmp_path / 'bare.obj'
+    bare.write_text('v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n')
+    got = obj_io.load_obj(bare)
+    assert got.verts_uvs is None and got.faces_uvs is None
+    np.testing.assert_array_equal(got.faces, jax_obj_io.load_obj(bare).faces)
+    lms = tmp_path / 'mesh_kpt2d.txt'
+    np.savetxt(lms, np.random.RandomState(0).randn(68, 3))
+    np.testing.assert_array_equal(obj_io.load_lms(lms),
+                                  jax_obj_io.load_lms(lms))
+
+
 def test_port_imports_no_jax():
+    """Every module of the port, and a generator built from it, pull in
+    neither JAX nor any module of the JAX package."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import next3d_tpu_torch\n"
-        "from next3d_tpu_torch import nn, ops\n"
-        "from next3d_tpu_torch.ops import raster, triplane, cuda_build\n"
-        "from next3d_tpu_torch.render import (camera_utils, fill_mouth, mesh,"
-        " rasterizer, ray_marcher, ray_sampler, renderer)\n"
-        "from next3d_tpu_torch.models import osg_decoder, triplane_next3d\n"
-        "from next3d_tpu_torch.utils import obj_io, synthetic_head, weights\n"
+        "for m in pkgutil.walk_packages(next3d_tpu_torch.__path__, "
+        "'next3d_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from next3d_tpu_torch.models import (triplane_next3d,"
+        " triplane_texture)\n"
+        "from next3d_tpu_torch.utils import synthetic_head\n"
         "mesh_, lms = synthetic_head.synthetic_head()\n"
-        "triplane_next3d.TriPlaneGenerator(z_dim=8, c_dim=25, w_dim=16, "
+        "for cls in (triplane_next3d.TriPlaneGenerator,"
+        " triplane_texture.TriPlaneTextureGenerator):\n"
+        "    cls(z_dim=8, c_dim=25, w_dim=16, "
         "img_resolution=128, img_channels=3, topology_path=mesh_, "
         "channel_base=64, channel_max=4, plane_resolution=64, "
         "rendering_kwargs={'superresolution_module': "
         "'SuperresolutionHybrid2X'})\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-        "if m.startswith('jax'))\n")
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'next3d_tpu'))\n"
+        "assert not bad, bad\n")
     subprocess.run([sys.executable, '-c', code], check=True, timeout=120)
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py names no module of the JAX package (the port alone may
-    share its numpy-only obj_io and pkl_import), and loading the head
-    through it pulls in no JAX."""
+    """chip_smoke.py names no module of JAX or of the JAX package, and
+    importing it and loading the head through it pulls in none."""
     root = Path(__file__).resolve().parents[1]
     tree = ast.parse((root / 'chip_smoke.py').read_text())
     names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
@@ -88,6 +133,8 @@ def test_chip_smoke_imports_only_the_port():
             "import chip_smoke\n"
             "mesh, lms = chip_smoke.load_head()\n"
             "assert mesh.verts.shape == (5023, 3) and lms.shape == (68, 3)\n"
-            "assert 'jax' not in sys.modules\n")
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'next3d_tpu'))\n"
+            "assert not bad, bad\n")
     subprocess.run([sys.executable, '-c', code], check=True, timeout=120,
                    cwd=root, env={**os.environ, 'NEXT3D_TOPOLOGY': ''})
