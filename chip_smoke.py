@@ -12,9 +12,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      256^2, N = 4 (16 images), each against its plain torch version on the
      card, bit for bit: K1 (binned, (u, v)), K2 (binned, zbuf; its
      pix_to_face equal to K1's), K3 (16-px tiles; equal to K1), K5 (per-face
-     z-buffer, patch 32; its pixels that differ from K1's are logged);
+     z-buffer, patch 32; its pixels that differ from K1's are logged). The
+     binned kernels' CUDA prep is held against the torch prep (the same
+     segment starts, and the same entries in each segment, rows bit-equal)
+     and timed alone beside it and beside the resolve kernel;
   4. K4, tri-plane sampling, against its plain version: planes
-     (4, 3, 32, 256, 256) at the coarse-pass points of the FFHQ camera;
+     (4, 3, 32, 256, 256) at the coarse-pass points of the FFHQ camera,
+     with the channels-last layout pass timed alone;
   5. K6, the 8-row block gather, at (98304, 128) with 131072 indices, in
      bf16 and f32, bit for bit;
   6. the 512^2 FFHQ forward (mapping + synthesis, port-native random init)
@@ -31,10 +35,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the device-busy share of 3 forwards from torch.profiler.
 
 Every kernel is timed by CUDA events beside its plain version and, where
-one PyTorch call computes the same function, that call (library_ms). Its
-bound is the larger of its bytes (inputs read once, outputs written once)
-over 3.35 TB/s and its float32 operations on this run's data over 67
-TFLOP/s, the H100 SXM's published peaks.
+one PyTorch call computes the same function, that call (library_ms); the
+binned kernels also carry their CUDA prep's time alone (prep_ms) and K4 the
+channels-last layout pass's (layout_ms, one pass serves a forward's 2
+launches). Its bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its float32 operations on this run's data
+over 67 TFLOP/s, the H100 SXM's published peaks.
 
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
@@ -66,8 +72,8 @@ RENDER_KW_FFHQ = dict(
     density_reg=0.25, density_reg_p_dist=0.004, reg_type='l1',
     decoder_lr_mul=1.0)
 CSRC = 'next3d_tpu_torch/csrc/'
-LIBRARIES = ('raster_binned_uv', 'triplane_sample', 'raster_zbuffer',
-             'gather_row_blocks')
+LIBRARIES = ('raster_binned_uv', 'raster_binned_prep', 'triplane_sample',
+             'raster_zbuffer', 'gather_row_blocks')
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12   # H100 SXM float32 outside the tensor cores
 # float32 operations a (pixel, candidate) pair needs in the binned kernels:
@@ -103,6 +109,22 @@ def time_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=10):
+    """Mean device time of ``fn()`` in ms: the summed durations of the
+    kernels and memsets it ran, from a torch.profiler trace of ``reps``
+    calls (time the device spent idle between them is left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / reps / 1e3
 
 
 def nbytes(*tensors):
@@ -198,17 +220,42 @@ def check_rasterizers(G, v):
         if any(mismatch):
             raise RuntimeError(f'{name} disagrees with its plain version')
 
+    def check_prep(name, args, tile, counted):
+        """The CUDA prep against the torch prep, then each timed alone
+        beside the resolve kernel; returns the CUDA prep's ms."""
+        slab, starts = raster.binned_prep_cuda(*args, tile)
+        want_slab, want_starts = raster.binned_prep(*args, tile)
+        torch.cuda.synchronize()
+        same_starts = torch.equal(starts, want_starts)
+        same_rows = same_starts and all(
+            torch.equal(a, b[:, :a.shape[1]]) for a, b in zip(
+                raster.segments_in_face_order(slab, starts), want_slab))
+        prep_ms = time_ms(lambda: raster.binned_prep_cuda(*args, tile))
+        torch_ms = time_ms(lambda: raster.binned_prep(*args, tile))
+        resolve_ms = time_ms(lambda: raster._resolve_cuda(
+            slab, starts, res, tile, counted))
+        prep_device_ms = device_ms(lambda: raster.binned_prep_cuda(*args,
+                                                                   tile))
+        occupancy = int((starts[:, 1:] - starts[:, :-1]).max())
+        log(f'{name} prep: starts equal {same_starts}, segments equal '
+            f'{same_rows}, {int(starts[:, -1].sum())} entries, max tile '
+            f'segment {occupancy}; CUDA prep {prep_ms:.3f} ms '
+            f'({prep_device_ms:.3f} ms of it on the device), torch prep '
+            f'{torch_ms:.3f} ms, resolve kernel {resolve_ms:.3f} ms')
+        if not same_rows:
+            raise RuntimeError(f'{name} CUDA prep disagrees with the torch '
+                               f'prep')
+        return prep_ms
+
     k1 = raster.rasterize_binned_uv(*uv_args)
     k1_plain = raster.rasterize_binned_uv_plain(*uv_args)
-    slab, starts = raster.binned_prep(*uv_args)
-    occupancy = int((starts[:, 1:] - starts[:, :-1]).max())
-    prep_ms = time_ms(lambda: raster.binned_prep(*uv_args))
-    log(f'K1 coverage {float((k1[0] >= 0).float().mean()):.3f}, max tile '
-        f'segment {occupancy}, torch prep alone {prep_ms:.3f} ms')
+    log(f'K1 coverage {float((k1[0] >= 0).float().mean()):.3f}')
     record('K1', k1, k1_plain, lambda: raster.rasterize_binned_uv(*uv_args),
            lambda: raster.rasterize_binned_uv_plain(*uv_args),
            in_bytes + nbytes(G.face_uv) + 3 * out_img,
            OPS_BINNED_PAIR * binned_pairs(*uv_args, raster.TILE))
+    results['K1']['prep_ms'] = check_prep('K1', uv_args, raster.TILE,
+                                          raster.rasterize_binned_uv)
 
     k2 = raster.rasterize_binned(tv, G.faces, res)
     record('K2', k2, raster.rasterize_binned_plain(tv, G.faces, res),
@@ -216,6 +263,9 @@ def check_rasterizers(G, v):
            lambda: raster.rasterize_binned_plain(tv, G.faces, res),
            in_bytes + 2 * out_img,
            OPS_BINNED_PAIR * binned_pairs(tv, G.faces, None, res, raster.TILE))
+    results['K2']['prep_ms'] = check_prep('K2', (tv, G.faces, None, res),
+                                          raster.TILE,
+                                          raster.rasterize_binned)
     if not torch.equal(k2[0], k1[0]):
         raise RuntimeError('K2 pix_to_face differs from K1')
 
@@ -225,6 +275,8 @@ def check_rasterizers(G, v):
            lambda: raster.rasterize_binned_uv16_plain(*uv_args),
            in_bytes + nbytes(G.face_uv) + 3 * out_img,
            OPS_BINNED_PAIR * binned_pairs(*uv_args, raster.TILE16))
+    results['K3']['prep_ms'] = check_prep('K3', uv_args, raster.TILE16,
+                                          raster.rasterize_binned_uv16)
     if not all(torch.equal(a, b) for a, b in zip(k3, k1)):
         raise RuntimeError('K3 differs from K1')
 
@@ -274,7 +326,7 @@ def check_k4(device):
     M = coords.shape[1]
     # 4 taps of 32 channels, a multiply and an add each, per point and plane
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms,
+               library_ms=library_ms, layout_ms=layout_ms,
                **bound(nbytes(planes, coords, got), 12 * M * 32 * 8))
     log(f'K4 planes (4, 3, 32, 256, 256), {M} points: max-abs {err:.3g}; '
         f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.grid_sample '
@@ -389,7 +441,7 @@ def flagship_stages(G, forward, z, c, v):
     images, _, lm2d = G.rasterize(verts, lms, textures)
     tv, _ = G.project_views(verts, lms)
     args = (tv.contiguous(), G.faces, G.face_uv[None], G.uv_resolution)
-    slab, starts = raster.binned_prep(*args)
+    slab, starts = raster.binned_prep_cuda(*args)
     res, tile = G.uv_resolution, raster.TILE
     planes = G.mix_planes_from_identity(eg3d_ws, textures, static, verts,
                                         lms, noise_mode='const')
@@ -403,7 +455,7 @@ def flagship_stages(G, forward, z, c, v):
             ws[:, :n_tex], noise_mode='const'),
         'rasterize (K1 + texture sample + fill_mouth)': lambda: G.rasterize(
             verts, lms, textures),
-        '- K1 torch prep': lambda: raster.binned_prep(*args),
+        '- K1 CUDA prep': lambda: raster.binned_prep_cuda(*args),
         '- K1 resolve kernel': lambda: raster._resolve_cuda(
             slab, starts, res, tile, raster.rasterize_binned_uv),
         '- K1 resolve plain': lambda: raster._resolve_plain(slab, starts,
@@ -438,8 +490,8 @@ def texture_stages(T, forward, z, c, v):
             ws[:, :n_tex], noise_mode='const'),
         'rasterize_orth (K2 + interpolation + texture sample)':
             lambda: T.rasterize_orth(v, textures),
-        '- K2 (torch prep + kernel)': lambda: rasterize_binned(tv, T.faces,
-                                                               res),
+        '- K2 (CUDA prep + kernel)': lambda: rasterize_binned(tv, T.faces,
+                                                              res),
         '- interpolate_face_attributes': lambda: interpolate_face_attributes(
             tv, T.faces, T.face_uvcoords[None], pf, res),
         'render + SR': lambda: T._render_from_planes(

@@ -20,8 +20,27 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD = CSRC / 'build'
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entry points of each library with their arguments (pointers and the
+# stream as void *); each returns a cudaError_t as an int
+SIGNATURES = {
+    'triplane_sample': {
+        'triplane_sample': [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P]},
+    'raster_binned_uv': {
+        entry: [_P] * 5 + [_I] * 4 + [_P]
+        for entry in ('raster_binned_uv', 'raster_binned_uv16',
+                      'raster_binned')},
+    'raster_binned_prep': {
+        'raster_binned_prep': [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5 + [_P]},
+    'raster_zbuffer': {'raster_zbuffer': [_P] * 5 + [_I] * 5 + [_P]},
+    'gather_row_blocks': {
+        'gather_row_blocks': [_P] * 3 + [ctypes.c_longlong] + [_I] * 2
+        + [_P]},
+}
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -77,16 +96,28 @@ def build(name):
 
 @functools.lru_cache(maxsize=None)
 def load(name):
-    """The ``ctypes`` handle of kernel library ``name`` (built on demand)."""
-    return ctypes.CDLL(str(build(name)))
+    """The ``ctypes`` handle of kernel library ``name`` (built on demand),
+    with the signatures of its entry points (``SIGNATURES``) and of its
+    ``<name>_error_string`` set."""
+    lib = ctypes.CDLL(str(build(name)))
+    for entry, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    fn = getattr(lib, f'{name}_error_string')
+    fn.restype = ctypes.c_char_p
+    fn.argtypes = [ctypes.c_int]
+    return lib
 
 
-def check(name, status):
-    """Raise if library ``name``'s C entry point returned a non-zero
-    ``cudaError_t``; every library exports ``<name>_error_string``."""
+def launch(name, entry, device, *args):
+    """Call C entry point ``entry`` of library ``name`` with ``args`` and
+    then the current stream of ``device``; raise if it returns a non-zero
+    ``cudaError_t``."""
+    lib = load(name)
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(
+            *args, torch.cuda.current_stream().cuda_stream)
     if status != 0:
-        fn = getattr(load(name), f'{name}_error_string')
-        fn.restype = ctypes.c_char_p
-        fn.argtypes = [ctypes.c_int]
-        raise RuntimeError(f'{name}: CUDA error {status}: '
-                           f'{fn(status).decode()}')
+        message = getattr(lib, f'{name}_error_string')(status).decode()
+        raise RuntimeError(f'{name}: CUDA error {status}: {message}')

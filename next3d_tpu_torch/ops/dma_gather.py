@@ -11,8 +11,6 @@ runs the plain version for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import cuda_build
@@ -36,15 +34,9 @@ def _gather_cuda(table, idx):
     idx = idx.contiguous()
     out = torch.empty((idx.numel(), 8, C), dtype=table.dtype,
                       device=table.device)
-    fn = cuda_build.load('gather_row_blocks').gather_row_blocks
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                    idx.numel(), R, block_bytes, stream)
-    cuda_build.check('gather_row_blocks', status)
+    cuda_build.launch('gather_row_blocks', 'gather_row_blocks', table.device,
+                      table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                      idx.numel(), R, block_bytes)
     gather_row_blocks.launches += 1
     return out
 

@@ -8,10 +8,15 @@ the JAX prep does (``_binned_uv_entries``, ``_binned_uv_entries16``,
 and K3 or without for K2, the tile entries of each face, a stable sort by
 tile id and the segment starts. The entry rule follows the tile: at 32 px
 the 4 bbox-corner tiles, at 16 px the 3x3 tile rectangle from the
-bbox-min tile. The resolve then tests every pixel of every tile against its
+bbox-min tile. On a CUDA tensor the prep runs as the kernels in
+``csrc/raster_binned_prep.cu`` (``binned_prep_cuda``: the same rows and
+segments, each segment's entries in arbitrary order), on a CPU tensor as
+torch. The resolve then tests every pixel of every tile against its
 tile's segment: on a CUDA tensor with the kernels in
 ``csrc/raster_binned_uv.cu``, on a CPU tensor with the plain version below,
-which uses the same arithmetic and tie rule.
+which uses the same arithmetic and tie rule. Both resolves take per pixel
+the lexicographic minimum of (z, face id) over the covering candidates, so
+their results do not depend on the order of a segment's entries.
 
 Exactness: a face's bbox must span less than 32 px, so that its entries
 reach every tile it overlaps (the model checks this for its topology at
@@ -19,8 +24,6 @@ construction). K1, K2 and K3 then agree with each other bit for bit.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -227,25 +230,81 @@ def _resolve_cuda(slab, starts, image_size, tile, counted):
     pf = torch.empty((B, H, W), dtype=torch.int32, device=slab.device)
     outs = [torch.empty((B, H, W), dtype=torch.float32, device=slab.device)
             for _ in range(2 if K == N_COEFF else 1)]
-    fn = getattr(cuda_build.load('raster_binned_uv'), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    with torch.cuda.device(slab.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(slab.data_ptr(), starts.data_ptr(), pf.data_ptr(),
-                    outs[0].data_ptr(),
-                    outs[1].data_ptr() if len(outs) == 2 else None,
-                    B, E, H, W, stream)
-    cuda_build.check('raster_binned_uv', status)
+    cuda_build.launch('raster_binned_uv', entry, slab.device,
+                      slab.data_ptr(), starts.data_ptr(), pf.data_ptr(),
+                      outs[0].data_ptr(),
+                      outs[1].data_ptr() if len(outs) == 2 else None,
+                      B, E, H, W)
     counted.launches += 1
     return (pf, *outs)
 
 
+def binned_prep_cuda(verts, faces, face_attrs, image_size, tile=TILE):
+    """``binned_prep``'s contract on CUDA tensors, by the kernels in
+    ``csrc/raster_binned_prep.cu`` (a memset and two launches). ``starts``
+    and each segment's set of entries equal ``binned_prep``'s, and every
+    coefficient row is bit-equal; the order of the entries inside a
+    segment is arbitrary (the resolve does not depend on it) and the slab
+    past ``starts[:, T]`` is left unwritten. ``faces`` must index
+    ``verts``."""
+    B, V, _ = verts.shape
+    F = faces.shape[0]
+    H = W = image_size
+    if tile not in (TILE, TILE16) or (tile == TILE16 and face_attrs is None):
+        raise ValueError(f'no prep kernel for tile {tile} '
+                         f'{"without" if face_attrs is None else "with"} '
+                         f'(u, v)')
+    if H % tile:
+        raise ValueError(f'image_size {H} is not a multiple of {tile}')
+    dev = verts.device
+    verts = verts.detach().float().contiguous()
+    faces = faces.long().contiguous()
+    if verts.shape[-1] != 3 or faces.shape != (F, 3) or faces.device != dev:
+        raise ValueError('verts must be (B, V, 3) and faces (F, 3) on one '
+                         'device')
+    attrs, batched = None, 0
+    if face_attrs is not None:
+        attrs = face_attrs.detach().float().contiguous()
+        if attrs.shape[1:] != (F, 3, 2) or attrs.shape[0] not in (1, B) \
+                or attrs.device != dev:
+            raise ValueError(f'face_attrs must be (1 or {B}, {F}, 3, 2) on '
+                             f'{dev}')
+        batched = int(attrs.shape[0] > 1)
+    T = (W // tile) * (H // tile)
+    K = N_COEFF if face_attrs is not None else N_COEFF_Z
+    E = (4 if tile == TILE else 9) * F
+    slab = torch.empty((B, K, E), dtype=torch.float32, device=dev)
+    # starts, then the kernels' tile counts and fill cursors
+    ints = torch.empty((3, B, T + 1), dtype=torch.int32, device=dev)
+    cuda_build.launch('raster_binned_prep', 'raster_binned_prep', dev,
+                      verts.data_ptr(), faces.data_ptr(),
+                      None if attrs is None else attrs.data_ptr(), batched,
+                      slab.data_ptr(), ints[0].data_ptr(),
+                      ints[1].data_ptr(), B, V, F, image_size, tile)
+    return slab, ints[0]
+
+
+def segments_in_face_order(slab, starts):
+    """Per image b, the entries of ``slab`` before ``starts[b, T]`` sorted by
+    tile, then face id: ``binned_prep``'s order, in which a
+    ``binned_prep_cuda`` slab compares with it bit for bit. A list of
+    (K, starts[b, T]) tensors."""
+    out = []
+    for rows, bounds in zip(slab, starts.long()):
+        n = int(bounds[-1])
+        pos = torch.arange(n, device=rows.device)
+        tile = torch.searchsorted(bounds, pos, right=True) - 1
+        key = tile * rows.shape[1] + rows[-1, :n].long()
+        out.append(rows[:, :n][:, torch.argsort(key)])
+    return out
+
+
 def _rasterize(counted, verts, faces, face_attrs, image_size, tile):
-    slab, starts = binned_prep(verts, faces, face_attrs, image_size, tile)
-    if slab.is_cuda:
+    if verts.is_cuda:
+        slab, starts = binned_prep_cuda(verts, faces, face_attrs, image_size,
+                                        tile)
         return _resolve_cuda(slab, starts, image_size, tile, counted)
+    slab, starts = binned_prep(verts, faces, face_attrs, image_size, tile)
     return _resolve_plain(slab, starts, image_size, tile)
 
 

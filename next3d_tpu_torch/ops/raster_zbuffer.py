@@ -17,8 +17,6 @@ and both evaluate the edge and depth arithmetic in the TPU kernel's order.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -131,16 +129,9 @@ def _zbuffer_cuda(face_data, y0, image_size, stripe_h):
     keys = torch.full((B, H, W), KEY_EMPTY, dtype=torch.int64, device=dev)
     pf = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     zbuf = torch.empty((B, H, W), dtype=torch.float32, device=dev)
-    fn = cuda_build.load('raster_zbuffer').raster_zbuffer
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(face_data.data_ptr(), y0.data_ptr(), keys.data_ptr(),
-                    pf.data_ptr(), zbuf.data_ptr(), B, F, H, W, stripe_h,
-                    stream)
-    cuda_build.check('raster_zbuffer', status)
+    cuda_build.launch('raster_zbuffer', 'raster_zbuffer', dev,
+                      face_data.data_ptr(), y0.data_ptr(), keys.data_ptr(),
+                      pf.data_ptr(), zbuf.data_ptr(), B, F, H, W, stripe_h)
     rasterize_zbuffer.launches += 1
     return pf, zbuf
 

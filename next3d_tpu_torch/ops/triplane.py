@@ -7,14 +7,13 @@ sampled bilinearly (zeros padding, align_corners=False), giving (N, 3, M, C).
 
 The planes are passed channels-last, (N, 3, H, W, C) contiguous
 (``channels_last``), so that one layout pass serves both render passes of a
-forward. ``triplane_sample`` launches the kernel in
-``csrc/triplane_sample.cu`` for CUDA tensors and runs the plain
-``F.grid_sample`` version for CPU tensors. Inference only: no backward yet.
+forward and each tap's channels are one 128 B line. ``triplane_sample``
+launches the kernel in ``csrc/triplane_sample.cu`` for CUDA tensors (C = 32
+only; any other C raises) and runs the plain ``F.grid_sample`` version for
+CPU tensors. Inference only: no backward yet.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -61,28 +60,31 @@ def triplane_sample_plain(planes_cl, coordinates, box_warp):
     return out[:, :, 0].permute(0, 2, 1).reshape(N, n_planes, M, C)
 
 
+C_KERNEL = 32  # the channel count the kernel is instantiated for
+
+
 def _sample_cuda(planes_cl, coordinates, box_warp):
     N, n_planes, H, W, C = planes_cl.shape
     M = coordinates.shape[1]
     if n_planes != 3 or coordinates.shape != (N, M, 3):
         raise ValueError(f'planes {tuple(planes_cl.shape)} and coordinates '
                          f'{tuple(coordinates.shape)} do not match')
+    if C != C_KERNEL:
+        raise ValueError(f'the kernel takes {C_KERNEL} channels, not {C}')
     for name, t in (('planes', planes_cl), ('coordinates', coordinates)):
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != planes_cl.device:
             raise ValueError(f'{name} must be contiguous float32 on '
                              f'{planes_cl.device}')
+    if planes_cl.data_ptr() % 16:
+        raise ValueError('planes must be 16-byte aligned')
+    if max(planes_cl.numel(), N * 3 * M * C) >= 2 ** 31:
+        raise ValueError('the kernel indexes in 32 bits')
     out = torch.empty((N, 3, M, C), dtype=torch.float32,
                       device=planes_cl.device)
-    fn = cuda_build.load('triplane_sample').triplane_sample
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    with torch.cuda.device(planes_cl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(planes_cl.data_ptr(), coordinates.data_ptr(),
-                    out.data_ptr(), N, M, H, W, C, 2.0 / box_warp, stream)
-    cuda_build.check('triplane_sample', status)
+    cuda_build.launch('triplane_sample', 'triplane_sample', planes_cl.device,
+                      planes_cl.data_ptr(), coordinates.data_ptr(),
+                      out.data_ptr(), N, M, H, W, C, 2.0 / box_warp)
     triplane_sample.launches += 1
     return out
 

@@ -9,9 +9,12 @@ is bypassed there:
 
 Tolerances: K1, K2, K3 and K5 are bit-equal to their plain versions (the
 same rounding, see csrc/raster_binned_uv.cu and csrc/raster_zbuffer.cu), K6
-is a copy and exact; K4 within 1e-5 (its unnormalization rounds in another
-order than F.grid_sample); the slices within the fp32 parity gate of
-ROADMAP.md (max-abs 2e-3, mean-abs 1e-4), with TF32 off on the card.
+is a copy and exact; the binned kernels' CUDA prep gives the torch prep's
+segment starts exactly and, once each segment is sorted by face id, its
+slab bit for bit (csrc/raster_binned_prep.cu); K4 within 1e-5 (its
+unnormalization rounds in another order than F.grid_sample); the slices
+within the fp32 parity gate of ROADMAP.md (max-abs 2e-3, mean-abs 1e-4),
+with TF32 off on the card.
 """
 
 import math
@@ -24,12 +27,14 @@ from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
 from next3d_tpu_torch.models.triplane_texture import TriPlaneTextureGenerator
 from next3d_tpu_torch.ops.dma_gather import (gather_row_blocks,
                                              gather_row_blocks_plain)
-from next3d_tpu_torch.ops.raster import (rasterize_binned,
+from next3d_tpu_torch.ops.raster import (binned_prep, binned_prep_cuda,
+                                         rasterize_binned,
                                          rasterize_binned_plain,
                                          rasterize_binned_uv,
                                          rasterize_binned_uv16,
                                          rasterize_binned_uv16_plain,
-                                         rasterize_binned_uv_plain)
+                                         rasterize_binned_uv_plain,
+                                         segments_in_face_order)
 from next3d_tpu_torch.ops.raster_zbuffer import (rasterize_zbuffer,
                                                  rasterize_zbuffer_plain)
 from next3d_tpu_torch.ops.triplane import (channels_last, triplane_sample,
@@ -87,6 +92,25 @@ def test_binned_kernel_matches_plain(device, kernel, plain, with_attrs):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize('with_attrs,attrs_batch,tile', [
+    (True, 1, 32), (True, 2, 32), (False, 1, 32), (True, 1, 16)],
+    ids=['K1', 'K1-attrs-per-image', 'K2', 'K3'])
+def test_binned_prep_cuda_matches_torch_prep(device, with_attrs, attrs_batch,
+                                             tile):
+    verts, faces, attrs = _head(device)
+    if attrs_batch == 2:
+        attrs = torch.cat([attrs, attrs.flip(1)])
+    args = (verts, faces, attrs if with_attrs else None, 256, tile)
+    slab, starts = binned_prep_cuda(*args)
+    want_slab, want_starts = binned_prep(*args)
+    torch.cuda.synchronize()
+    assert slab.shape == want_slab.shape and starts.dtype == torch.int32
+    assert torch.equal(starts, want_starts)
+    for b, rows in enumerate(segments_in_face_order(slab, starts)):
+        assert rows.shape[1] > 0
+        assert torch.equal(rows, want_slab[b, :, :rows.shape[1]])
+
+
 @pytest.mark.parametrize('patch', [32, 16])
 def test_k5_kernel_matches_plain(device, patch):
     verts, faces, _ = _head(device)
@@ -129,6 +153,33 @@ def test_k4_kernel_matches_plain(device, yaw):
     torch.cuda.synchronize()
     assert triplane_sample.launches == before + 1
     assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize('n,m,box_warp', [(1, 4099, 1.0), (3, 1000, 2.0)])
+def test_k4_kernel_ragged_and_far_out_points(device, n, m, box_warp):
+    """N = 1, M not a multiple of the 32 points a block takes, and points
+    in and far out of the box (up to 1e4 box widths; zeros there)."""
+    g = torch.Generator(device=device).manual_seed(1)
+    planes = channels_last(torch.randn(n, 3, 32, 64, 48, generator=g,
+                                       device=device))
+    coords = (torch.rand(n, m, 3, generator=g, device=device) * 2 - 1) \
+        * box_warp * 0.6
+    coords[:, ::7] *= 1e4
+    coords[:, 1::7] *= 1.05 / 0.6
+    before = triplane_sample.launches
+    got = triplane_sample(planes, coords, box_warp)
+    want = triplane_sample_plain(planes, coords, box_warp)
+    torch.cuda.synchronize()
+    assert triplane_sample.launches == before + 1
+    assert got.shape == (n, 3, m, 32)
+    assert torch.all(got[:, :, ::7] == 0)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_k4_kernel_rejects_other_channel_counts(device):
+    planes = channels_last(torch.zeros(1, 3, 16, 8, 8, device=device))
+    with pytest.raises(ValueError, match='32 channels'):
+        triplane_sample(planes, torch.zeros(1, 5, 3, device=device), 1.0)
 
 
 @pytest.mark.parametrize('model', ['flagship', 'texture'])

@@ -6,6 +6,7 @@ The kernel itself runs only on a GPU: tests/test_torch_cuda.py and
 chip_smoke.py hold it against the plain version there."""
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 import torch
@@ -13,8 +14,10 @@ import torch
 from next3d_tpu.ops.pallas_raster import rasterize_mesh_pallas_binned_uv
 from next3d_tpu.render.mesh import angle2matrix
 from next3d_tpu.render.rasterizer import rasterize_mesh, required_patch_size
-from next3d_tpu_torch.ops.raster import (binned_prep, rasterize_binned_uv,
-                                         rasterize_binned_uv_plain)
+from next3d_tpu_torch.ops.raster import (_resolve_plain, binned_prep,
+                                         rasterize_binned_uv,
+                                         rasterize_binned_uv_plain,
+                                         segments_in_face_order)
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 
 
@@ -77,6 +80,36 @@ def test_prep_bins_every_kept_face_once_per_tile():
         for t in range(T):
             fids = slab[b, 18, starts[b, t]:starts[b, t + 1]]
             assert len(torch.unique(fids)) == len(fids)
+
+
+@pytest.mark.parametrize('with_attrs,tile', [(True, 32), (False, 32),
+                                              (True, 16)],
+                         ids=['K1', 'K2', 'K3'])
+def test_resolve_ignores_order_inside_segments(with_attrs, tile):
+    """The CUDA prep places a segment's entries in arbitrary order. The
+    resolve takes per pixel the lexicographic minimum of (z, face id) over
+    the covering candidates, and a face has at most one entry per tile, so
+    binned_prep's slab with every segment shuffled resolves bit-equal; and
+    segments_in_face_order restores binned_prep's order exactly."""
+    verts, faces, attrs, H = _head_views(5)
+    args = (torch.from_numpy(verts), torch.from_numpy(faces),
+            torch.from_numpy(attrs) if with_attrs else None, H, tile)
+    slab, starts = binned_prep(*args)
+    B, K, E = slab.shape
+    rng = np.random.RandomState(0)
+    perm = np.tile(np.arange(E), (B, 1))
+    bounds = starts.numpy()
+    for b in range(B):
+        for lo, hi in zip(bounds[b, :-1], bounds[b, 1:]):
+            perm[b, lo:hi] = rng.permutation(perm[b, lo:hi])
+    shuffled = slab.gather(
+        2, torch.from_numpy(perm)[:, None].expand(B, K, E)).contiguous()
+    assert not torch.equal(shuffled, slab)
+    for got, want in zip(_resolve_plain(shuffled, starts, H, tile),
+                         _resolve_plain(slab, starts, H, tile)):
+        assert torch.equal(got, want)
+    for b, rows in enumerate(segments_in_face_order(shuffled, starts)):
+        assert torch.equal(rows, slab[b, :, :bounds[b, -1]])
 
 
 def _four_views(seed):
