@@ -15,7 +15,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      z-buffer, patch 32; its pixels that differ from K1's are logged). The
      binned kernels' CUDA prep is held against the torch prep (the same
      segment starts, and the same entries in each segment, rows bit-equal)
-     and timed alone beside it and beside the resolve kernel;
+     and timed alone beside it and beside the resolve kernel, which is also
+     timed on one image alone and logged with its segment lengths and
+     (pixel, candidate) test counts; then K1, K2 and K3 again on the seeded
+     adversarial mesh of utils/raster_cases.py at the same size, bit for
+     bit against their plain versions, K3 equal to K1 and K2's pix_to_face
+     to K1's;
   4. K4, tri-plane sampling, against its plain version: planes
      (4, 3, 32, 256, 256) at the coarse-pass points of the FFHQ camera,
      with the channels-last layout pass timed alone;
@@ -40,7 +45,12 @@ binned kernels also carry their CUDA prep's time alone (prep_ms) and K4 the
 channels-last layout pass's (layout_ms, one pass serves a forward's 2
 launches). Its bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its float32 operations on this run's data
-over 67 TFLOP/s, the H100 SXM's published peaks.
+over 67 TFLOP/s, the H100 SXM's published peaks. For the binned kernels
+those operations are 12 a (pixel, kept face) pair inside the face's pixel
+bbox (pairs_bbox); bound_ms_all_pairs keeps the first design's count, every
+pixel of a tile against every candidate of its segment (pairs_all), and
+pairs_culled counts the pairs that the candidates surviving the kernels'
+coarse test cost.
 
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
@@ -172,10 +182,25 @@ def ffhq_camera(n, device):
 
 
 def binned_pairs(verts, faces, attrs, image_size, tile):
-    """(pixel, candidate) pairs the binned resolve tests for these inputs."""
+    """(pixel, candidate) pairs of every pixel of each tile with every
+    candidate of its segment: the tests of the binned resolve's first
+    design, which that design's bound counted."""
     from next3d_tpu_torch.ops.raster import binned_prep
     _, starts = binned_prep(verts, faces, attrs, image_size, tile)
     return int((starts[:, -1] - starts[:, 0]).sum()) * tile * tile
+
+
+def bbox_pairs(verts, faces, image_size):
+    """(pixel, kept face) pairs inside each kept face's pixel bbox, cut to
+    the image, from the prep's corner coordinates: the per-pixel tests the
+    binned resolve needs for these inputs."""
+    from next3d_tpu_torch.ops.raster import face_corners
+    fx, fy, _, area = face_corners(verts, faces, image_size)
+
+    def pixels(c):
+        return (torch.floor(c.amax(-1)).clamp(max=image_size - 1)
+                - torch.ceil(c.amin(-1)).clamp(min=0) + 1).clamp(min=0)
+    return int((pixels(fx) * pixels(fy) * (area > 1e-8)).sum())
 
 
 def zbuffer_tests(verts, faces, image_size, patch):
@@ -222,7 +247,9 @@ def check_rasterizers(G, v):
 
     def check_prep(name, args, tile, counted):
         """The CUDA prep against the torch prep, then each timed alone
-        beside the resolve kernel; returns the CUDA prep's ms."""
+        beside the resolve kernel (on all images and on the first alone);
+        returns those times, the longest segment and the (pixel, candidate)
+        tests that the candidates surviving the coarse test cost."""
         slab, starts = raster.binned_prep_cuda(*args, tile)
         want_slab, want_starts = raster.binned_prep(*args, tile)
         torch.cuda.synchronize()
@@ -234,49 +261,96 @@ def check_rasterizers(G, v):
         torch_ms = time_ms(lambda: raster.binned_prep(*args, tile))
         resolve_ms = time_ms(lambda: raster._resolve_cuda(
             slab, starts, res, tile, counted))
+        resolve_one_ms = time_ms(lambda: raster._resolve_cuda(
+            slab[:1], starts[:1], res, tile, counted))
         prep_device_ms = device_ms(lambda: raster.binned_prep_cuda(*args,
                                                                    tile))
-        occupancy = int((starts[:, 1:] - starts[:, :-1]).max())
+        resolve_device = device_ms(lambda: raster._resolve_cuda(
+            slab, starts, res, tile, counted))
+        resolve_one_device = device_ms(lambda: raster._resolve_cuda(
+            slab[:1], starts[:1], res, tile, counted))
+        per_image = (starts[:, 1:] - starts[:, :-1]).amax(1).tolist()
+        entries = int(starts[:, -1].sum())
+        keep = raster.cull_plain(slab, starts, res, tile)     # (B, E, S)
+        culled = int(keep.sum()) * raster.SUB_W * raster.SUB_H
+        # the survivors of each (image, tile, sub-tile): one warp's chain
+        pos = torch.arange(keep.shape[1], device=keep.device)
+        t_of = torch.searchsorted(starts.long(), pos.expand(
+            len(starts), -1).contiguous(), right=True) - 1
+        per_sub = torch.zeros(starts.shape + keep.shape[-1:],
+                              dtype=torch.long, device=keep.device)
+        per_sub.scatter_add_(1, t_of[..., None].expand_as(keep),
+                             keep.long())
+        max_sub = int(per_sub[:, :-1].max())
         log(f'{name} prep: starts equal {same_starts}, segments equal '
-            f'{same_rows}, {int(starts[:, -1].sum())} entries, max tile '
-            f'segment {occupancy}; CUDA prep {prep_ms:.3f} ms '
+            f'{same_rows}, {entries} entries, max tile segment '
+            f'{max(per_image)}; CUDA prep {prep_ms:.3f} ms '
             f'({prep_device_ms:.3f} ms of it on the device), torch prep '
-            f'{torch_ms:.3f} ms, resolve kernel {resolve_ms:.3f} ms')
+            f'{torch_ms:.3f} ms, resolve kernel {resolve_ms:.4f} ms '
+            f'({resolve_device:.4f} ms on the device)')
+        log(f'{name} resolve: max segment per image {per_image}; on the '
+            f'device {1e6 * resolve_device / entries:.3f} ns an entry of '
+            f'all {len(per_image)} images, '
+            f'{1e6 * resolve_device / max(per_image):.1f} ns an entry of '
+            f'the longest segment; image 0 alone {resolve_one_ms:.4f} ms '
+            f'({resolve_one_device:.4f} ms on the device; max segment '
+            f'{per_image[0]}); the surviving candidates cost {culled} '
+            f'(pixel, candidate) tests, at most {max_sub} in one sub-tile')
         if not same_rows:
             raise RuntimeError(f'{name} CUDA prep disagrees with the torch '
                                f'prep')
-        return prep_ms
+        return dict(prep_ms=prep_ms, resolve_ms=resolve_ms,
+                    resolve_device_ms=resolve_device,
+                    resolve_one_image_ms=resolve_one_ms,
+                    resolve_one_image_device_ms=resolve_one_device,
+                    max_segment=max(per_image), pairs_culled=culled,
+                    max_sub_tile_survivors=max_sub)
+
+    def pair_counts(name, n_bytes, pairs_all, pairs_bbox):
+        """The old and the new pair counts, and the first design's bound."""
+        results[name].update(
+            pairs_all=pairs_all, pairs_bbox=pairs_bbox,
+            bound_ms_all_pairs=bound(n_bytes, OPS_BINNED_PAIR
+                                     * pairs_all)['bound_ms'])
+        log(f'{name} pairs: every tile pixel x every candidate {pairs_all}, '
+            f'inside the kept faces\' bboxes {pairs_bbox}, surviving the '
+            f'coarse test {results[name]["pairs_culled"]}')
+
+    pairs_bbox = bbox_pairs(tv, G.faces, res)
 
     k1 = raster.rasterize_binned_uv(*uv_args)
     k1_plain = raster.rasterize_binned_uv_plain(*uv_args)
     log(f'K1 coverage {float((k1[0] >= 0).float().mean()):.3f}')
+    uv_bytes = in_bytes + nbytes(G.face_uv) + 3 * out_img
     record('K1', k1, k1_plain, lambda: raster.rasterize_binned_uv(*uv_args),
-           lambda: raster.rasterize_binned_uv_plain(*uv_args),
-           in_bytes + nbytes(G.face_uv) + 3 * out_img,
-           OPS_BINNED_PAIR * binned_pairs(*uv_args, raster.TILE))
-    results['K1']['prep_ms'] = check_prep('K1', uv_args, raster.TILE,
-                                          raster.rasterize_binned_uv)
+           lambda: raster.rasterize_binned_uv_plain(*uv_args), uv_bytes,
+           OPS_BINNED_PAIR * pairs_bbox)
+    results['K1'].update(check_prep('K1', uv_args, raster.TILE,
+                                    raster.rasterize_binned_uv))
+    pair_counts('K1', uv_bytes, binned_pairs(*uv_args, raster.TILE),
+                pairs_bbox)
 
     k2 = raster.rasterize_binned(tv, G.faces, res)
     record('K2', k2, raster.rasterize_binned_plain(tv, G.faces, res),
            lambda: raster.rasterize_binned(tv, G.faces, res),
            lambda: raster.rasterize_binned_plain(tv, G.faces, res),
-           in_bytes + 2 * out_img,
-           OPS_BINNED_PAIR * binned_pairs(tv, G.faces, None, res, raster.TILE))
-    results['K2']['prep_ms'] = check_prep('K2', (tv, G.faces, None, res),
-                                          raster.TILE,
-                                          raster.rasterize_binned)
+           in_bytes + 2 * out_img, OPS_BINNED_PAIR * pairs_bbox)
+    results['K2'].update(check_prep('K2', (tv, G.faces, None, res),
+                                    raster.TILE, raster.rasterize_binned))
+    pair_counts('K2', in_bytes + 2 * out_img,
+                binned_pairs(tv, G.faces, None, res, raster.TILE), pairs_bbox)
     if not torch.equal(k2[0], k1[0]):
         raise RuntimeError('K2 pix_to_face differs from K1')
 
     k3 = raster.rasterize_binned_uv16(*uv_args)
     record('K3', k3, raster.rasterize_binned_uv16_plain(*uv_args),
            lambda: raster.rasterize_binned_uv16(*uv_args),
-           lambda: raster.rasterize_binned_uv16_plain(*uv_args),
-           in_bytes + nbytes(G.face_uv) + 3 * out_img,
-           OPS_BINNED_PAIR * binned_pairs(*uv_args, raster.TILE16))
-    results['K3']['prep_ms'] = check_prep('K3', uv_args, raster.TILE16,
-                                          raster.rasterize_binned_uv16)
+           lambda: raster.rasterize_binned_uv16_plain(*uv_args), uv_bytes,
+           OPS_BINNED_PAIR * pairs_bbox)
+    results['K3'].update(check_prep('K3', uv_args, raster.TILE16,
+                                    raster.rasterize_binned_uv16))
+    pair_counts('K3', uv_bytes, binned_pairs(*uv_args, raster.TILE16),
+                pairs_bbox)
     if not all(torch.equal(a, b) for a, b in zip(k3, k1)):
         raise RuntimeError('K3 differs from K1')
 
@@ -291,6 +365,44 @@ def check_rasterizers(G, v):
         f'{k1[0].numel()} pixels differ in pix_to_face, coverage on '
         f'{int(((k5[0] >= 0) != (k1[0] >= 0)).sum())}')
     return results
+
+
+def check_adversarial(device, n_images=16, image_size=256, n_faces=10000):
+    """Phase 3, second input: K1, K2 and K3 on the seeded adversarial mesh
+    (edges through pixel centres, slivers, faces across sub-tile and tile
+    borders, dropped faces, depth ties) at the size of the head's input,
+    each bit for bit against its plain version; K3 equal to K1 and K2's
+    pix_to_face to K1's."""
+    from next3d_tpu_torch.ops import raster
+    from next3d_tpu_torch.utils.raster_cases import adversarial_mesh
+    verts, faces, attrs = (torch.from_numpy(a).to(device) for a in
+                           adversarial_mesh(n_images, image_size, n_faces,
+                                            SEED))
+    outs = {}
+    for name, kernel, plain, args in (
+            ('K1', raster.rasterize_binned_uv,
+             raster.rasterize_binned_uv_plain, (verts, faces, attrs)),
+            ('K2', raster.rasterize_binned, raster.rasterize_binned_plain,
+             (verts, faces)),
+            ('K3', raster.rasterize_binned_uv16,
+             raster.rasterize_binned_uv16_plain, (verts, faces, attrs))):
+        got = kernel(*args, image_size)
+        want = plain(*args, image_size)
+        torch.cuda.synchronize()
+        mismatch = [int((a != b).sum()) for a, b in zip(got, want)]
+        log(f'{name} adversarial mesh, {n_images} images at {image_size}^2, '
+            f'{n_faces} faces: mismatching elements {mismatch}, coverage '
+            f'{float((got[0] >= 0).float().mean()):.3f}')
+        if any(mismatch):
+            raise RuntimeError(f'{name} disagrees with its plain version on '
+                               f'the adversarial mesh')
+        outs[name] = got
+    same13 = all(torch.equal(a, b) for a, b in zip(outs['K3'], outs['K1']))
+    same12 = torch.equal(outs['K2'][0], outs['K1'][0])
+    log(f'adversarial mesh: K3 equal to K1 {same13}, K2 pix_to_face equal to '
+        f'K1 {same12}')
+    if not (same13 and same12):
+        raise RuntimeError('K1, K2 and K3 disagree on the adversarial mesh')
 
 
 def check_k4(device):
@@ -583,6 +695,7 @@ def main():
 
     with torch.no_grad():
         stats = check_rasterizers(G, head_batch(mesh, lms, 4, device))
+        check_adversarial(device)
         stats['K4'] = check_k4(device)
         stats['K6'], launches['K6'] = check_k6(device)
 

@@ -11,12 +11,17 @@ the 4 bbox-corner tiles, at 16 px the 3x3 tile rectangle from the
 bbox-min tile. On a CUDA tensor the prep runs as the kernels in
 ``csrc/raster_binned_prep.cu`` (``binned_prep_cuda``: the same rows and
 segments, each segment's entries in arbitrary order), on a CPU tensor as
-torch. The resolve then tests every pixel of every tile against its
+torch. The resolve then finds each pixel's covering candidates among its
 tile's segment: on a CUDA tensor with the kernels in
-``csrc/raster_binned_uv.cu``, on a CPU tensor with the plain version below,
-which uses the same arithmetic and tie rule. Both resolves take per pixel
-the lexicographic minimum of (z, face id) over the covering candidates, so
-their results do not depend on the order of a segment's entries.
+``csrc/raster_binned_uv.cu``, which first cull each candidate from the
+sub-tiles (``SUB_W`` x ``SUB_H`` px) that its edges exclude by an exact
+corner test and then test only the survivors per pixel; on a CPU tensor
+with the plain version below, which tests every pixel of the tile against
+every candidate in the same arithmetic and tie rule. The culling removes
+no covering candidate (``cull_plain`` mirrors it for the tests), and both
+resolves take per pixel the lexicographic minimum of (z, face id) over the
+covering candidates, so their results are bit-equal and do not depend on
+the order of a segment's entries.
 
 Exactness: a face's bbox must span less than 32 px, so that its entries
 reach every tile it overlaps (the model checks this for its topology at
@@ -38,6 +43,25 @@ NO_FACE = float(2 ** 30)
 N_COEFF = 19
 N_COEFF_Z = 13  # without (u, v)
 PLAIN_CHUNK_ELEMS = 1 << 24  # (tile, candidate, pixel) triples per plain step
+SUB_W, SUB_H = 8, 4  # sub-tile of the resolve kernels' coarse test, px
+
+
+def face_corners(verts, faces, image_size):
+    """The prep's pixel coordinates of each face's corners: x, y, z, each
+    (B, F, 3) float32, and the doubled signed area (B, F); the prep keeps a
+    face where that area is > 1e-8."""
+    H = W = image_size
+    verts = verts.detach().float()
+    faces = faces.long()
+    px = (verts[..., 0] + 1) * (W / 2) - 0.5
+    py = (verts[..., 1] + 1) * (H / 2) - 0.5
+    fx = px[:, faces]                                        # (B, F, 3)
+    fy = py[:, faces]
+    fz = verts[..., 2][:, faces]
+    x0, x1, x2 = fx.unbind(-1)
+    y0, y1, y2 = fy.unbind(-1)
+    area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    return fx, fy, fz, area
 
 
 def binned_prep(verts, faces, face_attrs, image_size, tile=TILE):
@@ -59,18 +83,10 @@ def binned_prep(verts, faces, face_attrs, image_size, tile=TILE):
     Tx = W // tile
     Ty = H // tile
     T = Tx * Ty
-    faces = faces.long()
-    verts = verts.detach().float()
-
-    px = (verts[..., 0] + 1) * (W / 2) - 0.5
-    py = (verts[..., 1] + 1) * (H / 2) - 0.5
-    fx = px[:, faces]                                        # (B, F, 3)
-    fy = py[:, faces]
-    fz = verts[..., 2][:, faces]
+    fx, fy, fz, area = face_corners(verts, faces, image_size)
     x0, x1, x2 = fx.unbind(-1)
     y0, y1, y2 = fy.unbind(-1)
     z0, z1, z2 = fz.unbind(-1)
-    area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
     keep = area > 1e-8
     inv = torch.where(keep, 1.0 / torch.where(keep, area,
                                               torch.ones_like(area)),
@@ -208,6 +224,35 @@ def _resolve_plain(slab, starts, image_size, tile):
             0, 1, 3, 2, 4).reshape(B, H, W)
 
     return (image(pf), *(image(o) for o in outs))
+
+
+def cull_plain(slab, starts, image_size, tile):
+    """The resolve kernels' coarse test in plain torch, for the tests and
+    chip_smoke.py (no resolve calls it). A tile holds (tile / SUB_W) x
+    (tile / SUB_H) sub-tiles of SUB_W x SUB_H pixels, numbered row by row.
+    An entry survives in a sub-tile of its tile when each of its three edge
+    rows, evaluated as (c + x*gx) + y*gy at the sub-tile corner whose x is
+    the largest if gx >= 0 (else the smallest) and likewise for y, is >= 0.
+
+    Returns (B, E, S) bool, False for the entries past ``starts[:, T]``."""
+    B, _, E = slab.shape
+    Tx = image_size // tile
+    T = Tx * Tx
+    dev = slab.device
+    s = torch.arange((tile // SUB_W) * (tile // SUB_H), device=dev)
+    pos = torch.arange(E, device=dev).expand(B, E).contiguous()
+    t = torch.searchsorted(starts.long().contiguous(), pos, right=True) - 1
+    valid = t < T
+    t = t.clamp(max=T - 1)[..., None]                        # (B, E, 1)
+    x0 = (t % Tx) * tile + (s % (tile // SUB_W)) * SUB_W    # (B, E, S)
+    y0 = (t // Tx) * tile + (s // (tile // SUB_W)) * SUB_H
+    keep = valid[..., None].expand(B, E, s.numel())
+    for e in (0, 3, 6):
+        c, gx, gy = (slab[:, e + d, :, None] for d in range(3))
+        x = torch.where(gx >= 0, x0 + (SUB_W - 1), x0).float()
+        y = torch.where(gy >= 0, y0 + (SUB_H - 1), y0).float()
+        keep = keep & ((c + gx * x) + gy * y >= 0)
+    return keep
 
 
 def _resolve_cuda(slab, starts, image_size, tile, counted):

@@ -8,7 +8,9 @@ is bypassed there:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: K1, K2, K3 and K5 are bit-equal to their plain versions (the
-same rounding, see csrc/raster_binned_uv.cu and csrc/raster_zbuffer.cu), K6
+same rounding, and for K1-K3 an exact cull, see csrc/raster_binned_uv.cu and
+csrc/raster_zbuffer.cu), also on the adversarial meshes of
+utils/raster_cases.py, and K3 equals K1 and K2's pix_to_face K1's there; K6
 is a copy and exact; the binned kernels' CUDA prep gives the torch prep's
 segment starts exactly and, once each segment is sorted by face id, its
 slab bit for bit (csrc/raster_binned_prep.cu); K4 within 1e-5 (its
@@ -28,6 +30,7 @@ from next3d_tpu_torch.models.triplane_texture import TriPlaneTextureGenerator
 from next3d_tpu_torch.ops.dma_gather import (gather_row_blocks,
                                              gather_row_blocks_plain)
 from next3d_tpu_torch.ops.raster import (binned_prep, binned_prep_cuda,
+                                         face_corners,
                                          rasterize_binned,
                                          rasterize_binned_plain,
                                          rasterize_binned_uv,
@@ -43,6 +46,8 @@ from next3d_tpu_torch.render.camera_utils import (fov_to_intrinsics,
                                                   lookat_pose)
 from next3d_tpu_torch.render.ray_sampler import sample_rays
 from next3d_tpu_torch.render.renderer import sample_stratified
+from next3d_tpu_torch.utils.raster_cases import (adversarial_mesh,
+                                                 four_views)
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 
 pytestmark = pytest.mark.cuda
@@ -90,6 +95,62 @@ def test_binned_kernel_matches_plain(device, kernel, plain, with_attrs):
     assert kernel.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _all_dropped(verts, faces, attrs, H):
+    """An adversarial mesh (each face its own 3 vertices) with corners 1 and
+    2 of every face the prep keeps swapped, so that it drops them all."""
+    _, _, _, area = face_corners(torch.from_numpy(verts),
+                                 torch.from_numpy(faces), H)
+    verts = verts.copy()
+    for b, f in zip(*np.nonzero(area.numpy() > 0)):
+        verts[b, 3 * f + 1:3 * f + 3] = verts[b, [3 * f + 2, 3 * f + 1]]
+    return verts, faces, attrs
+
+
+# (verts, faces, attrs, image size) makers: the inputs of
+# tests/test_torch_raster_cull.py, then batch 1, image sizes 64 and 512, and
+# an input whose tiles are all empty
+HARD_INPUTS = {
+    'four-views': lambda: (*four_views(synthetic_head()[0], 6), 256),
+    'adversarial-64': lambda: (*adversarial_mesh(2, 64, 400, 0), 64),
+    'adversarial-128': lambda: (*adversarial_mesh(2, 128, 1500, 1), 128),
+    'adversarial-batch1-64': lambda: (*adversarial_mesh(1, 64, 300, 3), 64),
+    'adversarial-512': lambda: (*adversarial_mesh(2, 512, 20000, 4), 512),
+    'four-views-512': lambda: (*four_views(synthetic_head()[0], 7), 512),
+    'all-tiles-empty': lambda: (*_all_dropped(*adversarial_mesh(
+        2, 128, 1500, 5), 128), 128),
+}
+
+
+@pytest.mark.parametrize('case', list(HARD_INPUTS))
+def test_binned_kernels_on_hard_inputs(device, case):
+    """K1, K2 and K3 each bit-equal to its plain version; K3 equal to K1
+    and K2's pix_to_face to K1's."""
+    *arrays, H = HARD_INPUTS[case]()
+    verts, faces, attrs = (torch.from_numpy(a).to(device) for a in arrays)
+    outs = {}
+    for name, kernel, plain, args in (
+            ('K1', rasterize_binned_uv, rasterize_binned_uv_plain,
+             (verts, faces, attrs)),
+            ('K2', rasterize_binned, rasterize_binned_plain, (verts, faces)),
+            ('K3', rasterize_binned_uv16, rasterize_binned_uv16_plain,
+             (verts, faces, attrs))):
+        before = kernel.launches
+        got = kernel(*args, H)
+        want = plain(*args, H)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, name
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+        outs[name] = got
+    assert all(torch.equal(a, b) for a, b in zip(outs['K3'], outs['K1']))
+    assert torch.equal(outs['K2'][0], outs['K1'][0])
+    covered = float((outs['K1'][0] >= 0).float().mean())
+    if case == 'all-tiles-empty':
+        assert covered == 0 and bool((outs['K2'][1] == 1e10).all())
+    else:
+        assert covered > 0.05
 
 
 @pytest.mark.parametrize('with_attrs,attrs_batch,tile', [

@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import torch
 
 from next3d_tpu.ops.pallas_raster import rasterize_mesh_pallas_binned_uv
-from next3d_tpu.render.mesh import angle2matrix
 from next3d_tpu.render.rasterizer import rasterize_mesh, required_patch_size
 from next3d_tpu_torch.ops.raster import (_resolve_plain, binned_prep,
                                          rasterize_binned_uv,
                                          rasterize_binned_uv_plain,
                                          segments_in_face_order)
+from next3d_tpu_torch.utils.raster_cases import four_views
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 
 
@@ -116,20 +116,7 @@ def _four_views(seed):
     """A jittered expression of the head through the flagship's 4
     orthographic views at the init orth scale and shift
     (TriPlaneGenerator.rasterize), with the model's face UVs."""
-    mesh, _ = synthetic_head()
-    rng = np.random.RandomState(seed)
-    v = (mesh.verts + rng.randn(*mesh.verts.shape) * 0.002).astype(np.float32)
-    tforms = np.stack([np.asarray(angle2matrix(jnp.asarray([a], jnp.float32)))[0]
-                       for a in ((0, 0, 0), (0, 90, 0), (0, -90, 0), (90, 0, 0))])
-    tv = (np.einsum('pc,vcd->vpd', v * np.float32([1, -1, 1]), tforms)
-          + np.float32([0.0, -0.01, -0.01])) * np.float32(5.0)
-    tv = (tv * np.float32([1, -1, -1]) + np.float32([0, 0, 10])).astype(
-        np.float32)
-    faces = mesh.faces[:, [0, 2, 1]].astype(np.int32)
-    uv = mesh.verts_uvs[mesh.faces_uvs] * 2 - 1
-    uv[..., 1] *= -1
-    attrs = uv[None][:, :, [0, 2, 1]].astype(np.float32)
-    return tv, faces, attrs
+    return four_views(synthetic_head()[0], seed)
 
 
 def test_four_views_match_jax_kernel_and_scatter():
