@@ -17,10 +17,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      segment starts, and the same entries in each segment, rows bit-equal)
      and timed alone beside it and beside the resolve kernel, which is also
      timed on one image alone and logged with its segment lengths and
-     (pixel, candidate) test counts; then K1, K2 and K3 again on the seeded
-     adversarial mesh of utils/raster_cases.py at the same size, bit for
-     bit against their plain versions, K3 equal to K1 and K2's pix_to_face
-     to K1's;
+     (pixel, candidate) test counts; K5's CUDA prep is held against its
+     torch prep (face rows and stripe starts of the kept faces bit-equal),
+     its face kernel and decode run apart against the wrapper, and each of
+     its stages is timed alone beside the wrapper and the torch prep and
+     logged with its (face, pixel) test counts; then K1, K2 and K3 again on
+     the seeded adversarial mesh of utils/raster_cases.py at the same
+     size, bit for bit against their plain versions, K3 equal to K1 and
+     K2's pix_to_face to K1's, and K5 on its own seeded case set, bit for
+     bit;
   4. K4, tri-plane sampling, against its plain version: planes
      (4, 3, 32, 256, 256) at the coarse-pass points of the FFHQ camera,
      with the channels-last layout pass timed alone;
@@ -50,7 +55,14 @@ those operations are 12 a (pixel, kept face) pair inside the face's pixel
 bbox (pairs_bbox); bound_ms_all_pairs keeps the first design's count, every
 pixel of a tile against every candidate of its segment (pairs_all), and
 pairs_culled counts the pairs that the candidates surviving the kernels'
-coarse test cost.
+coarse test cost. K5 counts 23 operations a (kept face, pixel) pair inside
+the face's bbox and its stripe (pairs_bbox); its bound_ms_all_pairs keeps
+its first design's count, every stripe pixel of each kept face
+(pairs_stripe), and pairs_walked counts the pixels of the sub-tiles that
+its face kernel's coarse levels keep. K5 also carries the time alone of its
+CUDA prep (prep_ms), its torch prep (torch_prep_ms), its face kernel
+(faces_ms) and its decode (decode_ms), each with its profiler device time
+(*_device_ms), and the wrapper's device time (wrapper_device_ms).
 
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
@@ -90,8 +102,8 @@ PEAK_F32_FLOP_S = 67e12   # H100 SXM float32 outside the tensor cores
 # three edge planes, c + x*gx + y*gy each
 OPS_BINNED_PAIR = 12
 # ... and a (face, pixel) test in K5: three edge functions with the face's
-# differences hoisted (2 sub, 2 mul, 1 sub each), 3 barycentric scalings and
-# the depth (3 mul, 2 add)
+# differences hoisted (2 sub, a mul and an fma of 2 operations each), 3
+# barycentric scalings and the depth (a mul and 2 fmas)
 OPS_ZBUFFER_TEST = 23
 
 
@@ -121,10 +133,11 @@ def time_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, reps=10, kernel=None):
     """Mean device time of ``fn()`` in ms: the summed durations of the
-    kernels and memsets it ran, from a torch.profiler trace of ``reps``
-    calls (time the device spent idle between them is left out)."""
+    kernels and memsets it ran (only those whose name holds ``kernel``,
+    if given), from a torch.profiler trace of ``reps`` calls (time the
+    device spent idle between them is left out)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -133,8 +146,8 @@ def device_ms(fn, reps=10):
             fn()
         torch.cuda.synchronize()
     return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / reps / 1e3
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (kernel is None or kernel in e.name)) / reps / 1e3
 
 
 def nbytes(*tensors):
@@ -203,10 +216,15 @@ def bbox_pairs(verts, faces, image_size):
     return int((pixels(fx) * pixels(fy) * (area > 1e-8)).sum())
 
 
-def zbuffer_tests(verts, faces, image_size, patch):
-    """(face, pixel) pairs K5 needs for these inputs: each kept face's
-    bbox pixels inside the image and inside its stripe."""
-    from next3d_tpu_torch.ops.raster_zbuffer import zbuffer_prep
+def zbuffer_pairs(verts, faces, image_size, patch):
+    """K5's (face, pixel) tests for these inputs: every stripe pixel of
+    each kept face (pairs_stripe, the first design's tests), the kept
+    faces' bbox pixels inside the image and their stripes (pairs_bbox, the
+    bound's count) and the pixels of the sub-tiles that survive the face
+    kernel's two coarse levels (pairs_walked, what the kernel tests), with
+    the corner tests of each level (strip_tests, sub_tile_tests)."""
+    from next3d_tpu_torch.ops.raster_zbuffer import (SUB_H, SUB_W,
+                                                     cull_plain, zbuffer_prep)
     data, y0, stripe_h = zbuffer_prep(verts, faces, image_size, patch)
     x, y = data[:, 0:3], data[:, 3:6]
     cols = (torch.floor(x.amax(1)).clamp(max=image_size - 1)
@@ -214,7 +232,69 @@ def zbuffer_tests(verts, faces, image_size, patch):
     rows = (torch.minimum(torch.floor(y.amax(1)), y0 + stripe_h - 1.0)
             - torch.maximum(torch.ceil(y.amin(1)), y0.float()) + 1
             ).clamp(min=0)
-    return int((cols * rows * (data[:, 9] > 0)).sum())
+    item, strips, subs = cull_plain(data, y0, image_size, stripe_h)
+    return dict(pairs_stripe=item.numel() * stripe_h * image_size,
+                pairs_bbox=int((cols * rows * (data[:, 9] > 0)).sum()),
+                pairs_walked=int(subs.sum()) * SUB_W * SUB_H,
+                strip_tests=strips.numel(),
+                sub_tile_tests=int(strips.sum()) * (stripe_h // SUB_H))
+
+
+def zbuffer_stages(want, verts, faces, image_size, patch):
+    """K5's CUDA prep against the torch prep (the same faces kept, their
+    face rows and stripe starts bit-equal), its face kernel and decode run
+    apart against the wrapper's result ``want``, then each stage timed
+    alone by CUDA events and by profiler device time: the CUDA prep, the
+    torch prep, the face kernel (by events on keys it already holds, on
+    the device after a refill of the keys each call) and the decode; and
+    the wrapper's device time, its four launches together."""
+    from next3d_tpu_torch.ops import raster_zbuffer as rz
+    args = (verts, faces, image_size, patch)
+    data, y0, stripe_h = rz.zbuffer_prep_cuda(*args)
+    want_data, want_y0, _ = rz.zbuffer_prep(*args)
+    kept = want_data[:, 9] > 0
+    B, H = verts.shape[0], image_size
+    keys = torch.full((B, H, H), rz.KEY_EMPTY, dtype=torch.int64,
+                      device=verts.device)
+    pf = torch.empty((B, H, H), dtype=torch.int32, device=verts.device)
+    zbuf = torch.empty((B, H, H), dtype=torch.float32, device=verts.device)
+
+    def faces_only():
+        rz._launch_zbuffer(data, y0, keys, pf, zbuf, stripe_h, rz.FACES)
+
+    def faces_fresh():
+        keys.fill_(rz.KEY_EMPTY)
+        faces_only()
+
+    def decode():
+        rz._launch_zbuffer(data, y0, keys, pf, zbuf, stripe_h, rz.DECODE)
+
+    faces_fresh()
+    decode()
+    torch.cuda.synchronize()
+    same = torch.equal(data[:, 9] > 0, kept) and torch.equal(
+        data.permute(0, 2, 1)[kept], want_data.permute(0, 2, 1)[kept]) \
+        and torch.equal(y0[kept], want_y0[kept])
+    staged = torch.equal(pf, want[0]) and torch.equal(zbuf, want[1])
+    out = dict(
+        prep_ms=time_ms(lambda: rz.zbuffer_prep_cuda(*args)),
+        prep_device_ms=device_ms(lambda: rz.zbuffer_prep_cuda(*args)),
+        torch_prep_ms=time_ms(lambda: rz.zbuffer_prep(*args)),
+        faces_ms=time_ms(faces_only),
+        faces_device_ms=device_ms(faces_fresh, kernel='zbuffer_faces'),
+        decode_ms=time_ms(decode), decode_device_ms=device_ms(decode),
+        wrapper_device_ms=device_ms(lambda: rz.rasterize_zbuffer(*args)))
+    log(f'K5 stages: CUDA prep equal to the torch prep on the '
+        f'{int(kept.sum())} kept faces {same}, face kernel + decode equal to '
+        f'the wrapper {staged}; CUDA prep {out["prep_ms"]:.4f} ms '
+        f'({out["prep_device_ms"]:.4f} on the device), torch prep '
+        f'{out["torch_prep_ms"]:.3f} ms, face kernel {out["faces_ms"]:.4f} '
+        f'ms ({out["faces_device_ms"]:.4f}), decode {out["decode_ms"]:.4f} '
+        f'ms ({out["decode_device_ms"]:.4f}), wrapper on the device '
+        f'{out["wrapper_device_ms"]:.4f} ms')
+    if not (same and staged):
+        raise RuntimeError('K5 CUDA prep or stages disagree')
+    return out
 
 
 def check_rasterizers(G, v):
@@ -356,11 +436,20 @@ def check_rasterizers(G, v):
 
     zb_args = (tv, G.faces, res, 32)
     k5 = raster_zbuffer.rasterize_zbuffer(*zb_args)
+    pairs = zbuffer_pairs(*zb_args)
     record('K5', k5, raster_zbuffer.rasterize_zbuffer_plain(*zb_args),
            lambda: raster_zbuffer.rasterize_zbuffer(*zb_args),
            lambda: raster_zbuffer.rasterize_zbuffer_plain(*zb_args),
-           in_bytes + 2 * out_img,
-           OPS_ZBUFFER_TEST * zbuffer_tests(*zb_args))
+           in_bytes + 2 * out_img, OPS_ZBUFFER_TEST * pairs['pairs_bbox'])
+    results['K5'].update(
+        zbuffer_stages(k5, *zb_args), **pairs,
+        bound_ms_all_pairs=bound(in_bytes + 2 * out_img, OPS_ZBUFFER_TEST
+                                 * pairs['pairs_stripe'])['bound_ms'])
+    log(f'K5 pairs: every stripe pixel of each kept face '
+        f'{pairs["pairs_stripe"]}, inside the kept faces\' bboxes '
+        f'{pairs["pairs_bbox"]}, walked by the face kernel '
+        f'{pairs["pairs_walked"]}; corner tests {pairs["strip_tests"]} '
+        f'(strips) and {pairs["sub_tile_tests"]} (sub-tiles)')
     log(f'K5 (patch 32) vs K1: {int((k5[0] != k1[0]).sum())} of '
         f'{k1[0].numel()} pixels differ in pix_to_face, coverage on '
         f'{int(((k5[0] >= 0) != (k1[0] >= 0)).sum())}')
@@ -403,6 +492,28 @@ def check_adversarial(device, n_images=16, image_size=256, n_faces=10000):
         f'K1 {same12}')
     if not (same13 and same12):
         raise RuntimeError('K1, K2 and K3 disagree on the adversarial mesh')
+
+
+def check_zbuffer_cases(device, n_images=16, image_size=256, n_faces=10000):
+    """Phase 3, third input: K5 on its seeded case set (wide, tall and
+    off-image faces, slivers, snapped faces, depth ties;
+    utils/raster_cases.py zbuffer_mesh) at the size of the head's input,
+    patch 32, bit for bit against its plain version."""
+    from next3d_tpu_torch.ops.raster_zbuffer import (rasterize_zbuffer,
+                                                     rasterize_zbuffer_plain)
+    from next3d_tpu_torch.utils.raster_cases import zbuffer_mesh
+    verts, faces = (torch.from_numpy(a).to(device) for a in
+                    zbuffer_mesh(n_images, image_size, n_faces, SEED))
+    got = rasterize_zbuffer(verts, faces, image_size, 32)
+    want = rasterize_zbuffer_plain(verts, faces, image_size, 32)
+    torch.cuda.synchronize()
+    mismatch = [int((a != b).sum()) for a, b in zip(got, want)]
+    log(f'K5 case set, {n_images} images at {image_size}^2, {n_faces} faces: '
+        f'mismatching elements {mismatch}, coverage '
+        f'{float((got[0] >= 0).float().mean()):.3f}')
+    if any(mismatch):
+        raise RuntimeError('K5 disagrees with its plain version on its case '
+                           'set')
 
 
 def check_k4(device):
@@ -696,6 +807,7 @@ def main():
     with torch.no_grad():
         stats = check_rasterizers(G, head_batch(mesh, lms, 4, device))
         check_adversarial(device)
+        check_zbuffer_cases(device)
         stats['K4'] = check_k4(device)
         stats['K6'], launches['K6'] = check_k6(device)
 

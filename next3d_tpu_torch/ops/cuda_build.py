@@ -36,7 +36,9 @@ SIGNATURES = {
                       'raster_binned')},
     'raster_binned_prep': {
         'raster_binned_prep': [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5 + [_P]},
-    'raster_zbuffer': {'raster_zbuffer': [_P] * 5 + [_I] * 5 + [_P]},
+    'raster_zbuffer': {
+        'raster_zbuffer_prep': [_P] * 4 + [_I] * 5 + [_P],
+        'raster_zbuffer': [_P] * 5 + [_I] * 6 + [_P]},
     'gather_row_blocks': {
         'gather_row_blocks': [_P] * 3 + [ctypes.c_longlong] + [_I] * 2
         + [_P]},

@@ -1,13 +1,16 @@
-"""Seeded rasterizer inputs for the binned kernels (K1, K2, K3).
+"""Seeded rasterizer inputs for the binned kernels (K1, K2, K3) and the
+per-face z-buffer (K5).
 
 ``adversarial_mesh`` stresses the resolve kernels' coarse test
 (``csrc/raster_binned_uv.cu``): edges that pass exactly through pixel
 centres, corners on the pixels where sub-tiles and tiles meet, sub-pixel
 slivers, faces across sub-tile and tile borders, dropped faces (zero area,
-back-facing) and depth ties. ``four_views`` is the flagship's rasterizer
-input, the head through its 4 orthographic views. Both return numpy arrays
-in the rasterizers' contract: verts (B, V, 3) with x, y in [-1, 1], faces
-(F, 3) int32, per-corner (u, v) attrs (1, F, 3, 2). The tests and
+back-facing) and depth ties. ``zbuffer_mesh`` and ``sliver_sweep`` do the
+same for K5's face kernel (``csrc/raster_zbuffer.cu``) and its rounding.
+``four_views`` is the flagship's rasterizer input, the head through its 4
+orthographic views. All return numpy arrays in the rasterizers' contract:
+verts (B, V, 3) with x, y in [-1, 1], faces (F, 3) int32, and for the
+binned kernels per-corner (u, v) attrs (1, F, 3, 2). The tests and
 chip_smoke.py use them; no model path does.
 """
 
@@ -124,6 +127,113 @@ def adversarial_mesh(n_images, image_size, n_faces, seed):
     faces = np.arange(3 * n_faces, dtype=np.int32).reshape(n_faces, 3)
     attrs = rng.uniform(-1, 1, (1, n_faces, 3, 2)).astype(np.float32)
     return verts, faces, attrs
+
+
+def _to_verts(tri, z, size):
+    """(n, 3, 2) pixel coordinates and (n, 3) depths -> (3n, 3) float32
+    vertices with x, y in [-1, 1] (pixel centre p at (p + 0.5) * 2 / size -
+    1)."""
+    xy = (tri.reshape(-1, 2) + 0.5) * (2.0 / size) - 1.0
+    return np.concatenate([xy, z.reshape(-1, 1)], -1).astype(np.float32)
+
+
+def _nudged(rng, n, size, max_len):
+    """(n, 3, 3) float32 vertices of near-degenerate slivers: two corners
+    on pixel centres up to ``max_len`` px apart, the third a float32 point
+    of the segment between them moved 1-3 ulps off it in x or y, half of
+    them wound the other way; depths in [1, 3]. Along the line through such
+    a face, an edge function rounded in another form than the reference's
+    can pass pixels far outside the face."""
+    a = rng.integers(0, size, (n, 2))
+    b = a + rng.integers(-max_len, max_len + 1, (n, 2))
+    tri = _to_verts(np.stack([a, b, b], 1).astype(np.float64),
+                    rng.uniform(1, 3, (n, 3)), size).reshape(n, 3, 3)
+    t = rng.uniform(0, 1, (n, 1)).astype(np.float32)
+    tri[:, 2, :2] = tri[:, 0, :2] + t * (tri[:, 1, :2] - tri[:, 0, :2])
+    axis = rng.integers(0, 2, n)
+    for i in range(n):
+        for _ in range(rng.integers(1, 4)):
+            c = tri[i, 2, axis[i]]
+            tri[i, 2, axis[i]] = np.nextafter(c, np.float32(
+                rng.choice([-1, 1]) * np.inf))
+    flip = rng.random(n) < 0.5
+    tri[flip] = tri[flip][:, [0, 2, 1]]
+    return tri
+
+
+def named_sliver():
+    """One kept sliver at 64^2 (area 1.9e-6 px^2; pixel-space corners x
+    (11, 12.048, 16), y (25, 26.257, 31)). At patch 32 the reference covers
+    (row, col) (25, 11) and (31, 16) only; its edges rounded as separate
+    products and differences also pass (37, 21), (43, 26) and (61, 41),
+    along the line of its long edge. Returns verts (1, 3, 3) float32 and
+    faces (1, 3) int32."""
+    verts = np.array([[[-0.640625, -0.203125, 1.0],
+                       [-0.484375, -0.015625, 1.0],
+                       [-0.6078811287879944, -0.1638323813676834, 1.0]]],
+                     np.float32)
+    return verts, np.array([[0, 2, 1]], np.int32)
+
+
+def sliver_sweep(n_images, image_size, n_faces, seed):
+    """``n_images`` images of ``n_faces`` independent near-degenerate
+    slivers (face f is vertices 3f, 3f + 1, 3f + 2; see ``_nudged``), their
+    corners up to 40 px apart. Returns verts (B, 3F, 3) float32 and faces
+    (F, 3) int32."""
+    rng = np.random.default_rng(seed)
+    verts = np.stack([_nudged(rng, n_faces, image_size, 40).reshape(-1, 3)
+                      for _ in range(n_images)])
+    faces = np.arange(3 * n_faces, dtype=np.int32).reshape(n_faces, 3)
+    return verts, faces
+
+
+def _front(tri):
+    """``tri`` with its back-facing triangles wound the other way."""
+    flip = _area(tri) < 0
+    tri[flip] = tri[flip][:, [0, 2, 1]]
+    return tri
+
+
+def _around(rng, n, size, half_w, half_h):
+    """Triangles whose corners lie up to ``half_w`` px across and
+    ``half_h`` px down from a point of the image."""
+    return rng.uniform(0, size, (n, 1, 2)) + np.stack([
+        rng.uniform(-half_w, half_w, (n, 3)),
+        rng.uniform(-half_h, half_h, (n, 3))], -1)
+
+
+def zbuffer_mesh(n_images, image_size, n_faces, seed):
+    """Seeded input for K5 (the per-face z-buffer), whose stripe is full
+    width and whose face kernel culls by column strips and sub-tiles:
+    ``n_images`` views of ``n_faces`` independent triangles, a sixth each
+    of snapped triangles (``_snapped``: corners on pixel centres and
+    sub-tile borders, edges through pixel centres), faces wider than 32 px
+    (up to the image's width), faces taller than a stripe of patch 32 (40
+    rows; K5 cuts them), faces partly off the image with corners at
+    negative coordinates and past the far borders, near-degenerate slivers
+    up to half the image long (``_nudged``; some pass the rounded test
+    outside their bbox) and snapped faces sharing one depth (ties). All but
+    the slivers face front; half the slivers are wound the other way.
+    Returns verts (B, 3F, 3) float32 and faces (F, 3) int32."""
+    rng = np.random.default_rng(seed)
+    size = image_size
+    n = np.diff(np.linspace(0, n_faces, 7).astype(int))
+    verts = []
+    for _ in range(n_images):
+        off = rng.uniform(-24, 8, (n[3], 1, 2)) \
+            + rng.uniform(0, 24, (n[3], 3, 2))
+        off[1::2] = size - 1 - off[1::2]       # past the far borders too
+        tris = [_to_verts(_front(tri), rng.uniform(1, 3, (len(tri), 3)),
+                          size)
+                for tri in (_snapped(rng, n[0], size),
+                            _around(rng, n[1], size, size, 6),
+                            _around(rng, n[2], size, 8, 60), off)]
+        tris.append(_nudged(rng, n[4], size, size // 2).reshape(-1, 3))
+        tris.append(_to_verts(_front(_snapped(rng, n[5], size)), np.repeat(
+            rng.choice([1.5, 2.0], (n[5], 1)), 3, 1), size))
+        verts.append(np.concatenate(tris))
+    faces = np.arange(3 * n_faces, dtype=np.int32).reshape(n_faces, 3)
+    return np.stack(verts), faces
 
 
 def four_views(mesh, seed):

@@ -8,12 +8,14 @@ is bypassed there:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: K1, K2, K3 and K5 are bit-equal to their plain versions (the
-same rounding, and for K1-K3 an exact cull, see csrc/raster_binned_uv.cu and
-csrc/raster_zbuffer.cu), also on the adversarial meshes of
-utils/raster_cases.py, and K3 equals K1 and K2's pix_to_face K1's there; K6
-is a copy and exact; the binned kernels' CUDA prep gives the torch prep's
-segment starts exactly and, once each segment is sorted by face id, its
-slab bit for bit (csrc/raster_binned_prep.cu); K4 within 1e-5 (its
+same rounding and an exact cull, see csrc/raster_binned_uv.cu and
+csrc/raster_zbuffer.cu), K1-K3 also on the adversarial meshes of
+utils/raster_cases.py, where K3 equals K1 and K2's pix_to_face K1's, and K5
+also on its slivers and its own case set there; K6 is a copy and exact;
+the binned kernels' CUDA prep gives the torch prep's segment starts exactly
+and, once each segment is sorted by face id, its slab bit for bit
+(csrc/raster_binned_prep.cu), and K5's CUDA prep its face rows and stripe
+starts on the kept faces (csrc/raster_zbuffer.cu); K4 within 1e-5 (its
 unnormalization rounds in another order than F.grid_sample); the slices
 within the fp32 parity gate of ROADMAP.md (max-abs 2e-3, mean-abs 1e-4),
 with TF32 off on the card.
@@ -39,7 +41,9 @@ from next3d_tpu_torch.ops.raster import (binned_prep, binned_prep_cuda,
                                          rasterize_binned_uv_plain,
                                          segments_in_face_order)
 from next3d_tpu_torch.ops.raster_zbuffer import (rasterize_zbuffer,
-                                                 rasterize_zbuffer_plain)
+                                                 rasterize_zbuffer_plain,
+                                                 zbuffer_prep,
+                                                 zbuffer_prep_cuda)
 from next3d_tpu_torch.ops.triplane import (channels_last, triplane_sample,
                                            triplane_sample_plain)
 from next3d_tpu_torch.render.camera_utils import (fov_to_intrinsics,
@@ -47,7 +51,8 @@ from next3d_tpu_torch.render.camera_utils import (fov_to_intrinsics,
 from next3d_tpu_torch.render.ray_sampler import sample_rays
 from next3d_tpu_torch.render.renderer import sample_stratified
 from next3d_tpu_torch.utils.raster_cases import (adversarial_mesh,
-                                                 four_views)
+                                                 four_views, sliver_sweep,
+                                                 zbuffer_mesh)
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 
 pytestmark = pytest.mark.cuda
@@ -182,6 +187,76 @@ def test_k5_kernel_matches_plain(device, patch):
     assert rasterize_zbuffer.launches == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert float((got[0] >= 0).float().mean()) > 0.05
+
+
+def _k5_all_culled(verts, faces, H):
+    """Each face of a mesh of independent faces wound the other way, and
+    a face that K5's prep keeps either way collapsed to a point, so that
+    the prep culls every face."""
+    verts = verts.copy()
+    faces_t = torch.from_numpy(faces)
+    data, _, _ = zbuffer_prep(torch.from_numpy(verts), faces_t, H)
+    for b, f in zip(*np.nonzero(data[:, 9].numpy() > 0)):
+        verts[b, 3 * f + 1:3 * f + 3] = verts[b, [3 * f + 2, 3 * f + 1]]
+    data, _, _ = zbuffer_prep(torch.from_numpy(verts), faces_t, H)
+    for b, f in zip(*np.nonzero(data[:, 9].numpy() > 0)):
+        verts[b, 3 * f + 1:3 * f + 3] = verts[b, 3 * f]
+    return verts, faces
+
+
+# (verts, faces, image size, patch) makers for K5: the head, the inputs of
+# tests/test_torch_zbuffer_cull.py, then batch 1, image sizes 64, 256 and
+# 512, and an input whose faces are all culled
+K5_INPUTS = {
+    'four-views': lambda: (*four_views(synthetic_head()[0], 6)[:2], 256, 32),
+    'sliver-sweep-64': lambda: (*sliver_sweep(8, 64, 40, 0), 64, 32),
+    'zbuffer-mesh-64': lambda: (*zbuffer_mesh(2, 64, 300, 0), 64, 32),
+    'zbuffer-mesh-256': lambda: (*zbuffer_mesh(4, 256, 3000, 1), 256, 32),
+    'zbuffer-mesh-512-patch64': lambda: (*zbuffer_mesh(2, 512, 6000, 2),
+                                         512, 64),
+    'zbuffer-mesh-batch1-256-patch16': lambda: (*zbuffer_mesh(1, 256, 2000,
+                                                              3), 256, 16),
+    'adversarial-128': lambda: (*adversarial_mesh(2, 128, 1500, 1)[:2], 128,
+                                32),
+    'all-culled': lambda: (*_k5_all_culled(*zbuffer_mesh(2, 128, 600, 4),
+                                           128), 128, 32),
+}
+
+
+@pytest.mark.parametrize('case', list(K5_INPUTS))
+def test_k5_kernel_on_hard_inputs(device, case):
+    """K5 bit-equal to its plain version, one launch a call."""
+    *arrays, H, patch = K5_INPUTS[case]()
+    verts, faces = (torch.from_numpy(a).to(device) for a in arrays)
+    before = rasterize_zbuffer.launches
+    got = rasterize_zbuffer(verts, faces, H, patch)
+    want = rasterize_zbuffer_plain(verts, faces, H, patch)
+    torch.cuda.synchronize()
+    assert rasterize_zbuffer.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    covered = float((got[0] >= 0).float().mean())
+    if case == 'all-culled':
+        assert covered == 0 and bool((got[1] == 1e10).all())
+    else:
+        assert covered > 0
+
+
+@pytest.mark.parametrize('case', ['four-views', 'zbuffer-mesh-512-patch64',
+                                  'all-culled'])
+def test_zbuffer_prep_cuda_matches_torch_prep(device, case):
+    """The CUDA prep keeps and culls the same faces as the torch prep, and
+    its face rows and stripe starts are bit-equal on the kept faces."""
+    *arrays, H, patch = K5_INPUTS[case]()
+    verts, faces = (torch.from_numpy(a).to(device) for a in arrays)
+    data, y0, stripe_h = zbuffer_prep_cuda(verts, faces, H, patch)
+    want_data, want_y0, want_stripe = zbuffer_prep(verts, faces, H, patch)
+    torch.cuda.synchronize()
+    assert stripe_h == want_stripe and y0.dtype == torch.int32
+    kept = want_data[:, 9] > 0
+    assert torch.equal(data[:, 9] > 0, kept)
+    assert torch.equal(data.permute(0, 2, 1)[kept],
+                       want_data.permute(0, 2, 1)[kept])
+    assert torch.equal(y0[kept], want_y0[kept])
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

@@ -39,7 +39,7 @@ from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 from next3d_tpu_torch.utils.weights import load_jax_params
 
-from torch_parity import n, t, to_jax_tree
+from torch_parity import n, one_thread, t, to_jax_tree  # noqa: F401
 
 RK = dict(ray_start=2.25, ray_end=3.3, box_warp=1.0, depth_resolution=8,
           depth_resolution_importance=8, disparity_space_sampling=False,
@@ -150,6 +150,7 @@ def test_binned16_forward_equals_binned(pair):
         assert torch.equal(got[key], want), key
 
 
+@pytest.mark.usefixtures('one_thread')
 def test_zbuffer_forward_matches_jax(pair):
     """'pallas': K5's visibility equals the golden's on all 8 images (the
     same edge arithmetic), then the gate."""

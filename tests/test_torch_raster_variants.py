@@ -6,6 +6,8 @@ synthetic head and on the random meshes of tests/test_rasterizer.py.
 The kernels themselves run only on a GPU: tests/test_torch_cuda.py and
 chip_smoke.py hold each against its plain version there."""
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 
@@ -25,15 +27,16 @@ from next3d_tpu_torch.ops.raster import (rasterize_binned,
                                          rasterize_binned_uv,
                                          rasterize_binned_uv16,
                                          rasterize_binned_uv16_plain)
-from next3d_tpu_torch.ops.raster_zbuffer import (rasterize_zbuffer,
+from next3d_tpu_torch.ops.raster_zbuffer import (fma32, rasterize_zbuffer,
                                                  rasterize_zbuffer_plain)
 from next3d_tpu_torch.render.rasterizer import (interpolate_face_attributes,
                                                 rasterize_uv_with_alpha,
                                                 rasterize_with_attributes)
+from next3d_tpu_torch.utils.raster_cases import named_sliver, sliver_sweep
 
 from test_rasterizer import random_mesh
 from test_torch_raster import _head_views, _rounding_tie, _four_views
-from torch_parity import n, t
+from torch_parity import n, one_thread, t  # noqa: F401  (a fixture)
 
 EPS = float(np.finfo(np.float32).eps)
 
@@ -126,20 +129,20 @@ def test_k3_plain_matches_jax_kernel_interpret():
 
 
 @pytest.mark.parametrize('seed,patch', [(0, 64), (1, 16), (2, 16)])
+@pytest.mark.usefixtures('one_thread')
 def test_k5_plain_matches_jax_kernel_interpret(seed, patch):
     """The random meshes of tests/test_rasterizer.py (B=2, up to 40 faces
     spanning the 64^2 image). At patch 64 the stripe is the whole image; at
     patch 16 it is 24 rows, so the tall faces are cut, as on the TPU.
-    pix_to_face is exact. zbuf (z in [1, 3]) agrees within 1e-5: the edge
-    functions' products reach 64^2 px^2, so XLA's and torch's roundings of
-    one barycentric differ by a few eps of that over the area."""
+    pix_to_face and zbuf are exact: the port rounds the area, the edges and
+    the depth in the reference's fused form (ops/raster_zbuffer.py)."""
     verts, faces = random_mesh(np.random.RandomState(seed), B=2, V=30, F=40)
     H = 64
     pf_j, z_j = (np.asarray(a) for a in rasterize_mesh_pallas(
         jnp.asarray(verts), jnp.asarray(faces), H, patch, True))
     pf, z = (n(a) for a in rasterize_zbuffer(t(verts), t(faces), H, patch))
     np.testing.assert_array_equal(pf, pf_j)
-    np.testing.assert_allclose(z, z_j, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(z, z_j)
     if patch == 16:
         # the cut shows: the full-height golden covers more pixels
         pf_s, _ = rasterize_mesh(jnp.asarray(verts), jnp.asarray(faces), H,
@@ -147,6 +150,95 @@ def test_k5_plain_matches_jax_kernel_interpret(seed, patch):
         assert (np.asarray(pf_s) >= 0).sum() > (pf >= 0).sum()
 
 
+@pytest.mark.usefixtures('one_thread')
+def test_k5_named_sliver():
+    verts, faces = named_sliver()
+    pf_j, z_j = (np.asarray(a) for a in rasterize_mesh_pallas(
+        jnp.asarray(verts), jnp.asarray(faces), 64, 32, True))
+    pf, z = (n(a) for a in rasterize_zbuffer(t(verts), t(faces), 64, 32))
+    assert np.argwhere(pf_j[0] >= 0).tolist() == [[25, 11], [31, 16]]
+    np.testing.assert_array_equal(pf, pf_j)
+    np.testing.assert_array_equal(z, z_j)
+
+
+@pytest.mark.parametrize('first_seed', [0, 5, 10, 15])
+@pytest.mark.usefixtures('one_thread')
+def test_k5_matches_jax_on_slivers(first_seed):
+    """5 seeded meshes of 2 images x 40 near-degenerate slivers at 64^2
+    (utils/raster_cases.py sliver_sweep: corners on pixel centres, the third
+    1-3 ulps off the segment between them, half wound the other way):
+    pix_to_face and zbuf equal JAX's interpret-mode K5 exactly. Only the
+    fused rounding does this: each product and sum rounded apart differs
+    from JAX on such faces."""
+    covered = differ_pf = differ_z = 0
+    for seed in range(first_seed, first_seed + 5):
+        verts, faces = sliver_sweep(2, 64, 40, seed)
+        pf_j, z_j = (np.asarray(a) for a in rasterize_mesh_pallas(
+            jnp.asarray(verts), jnp.asarray(faces), 64, 32, True))
+        pf, z = (n(a) for a in rasterize_zbuffer(t(verts), t(faces), 64, 32))
+        differ_pf += int((pf != pf_j).sum())
+        differ_z += int((z != z_j).sum())
+        covered += int((pf_j >= 0).sum())
+    print(f'slivers, seeds {first_seed}-{first_seed + 4}: {covered} pixels '
+          f'covered; {differ_pf} differ from JAX in pix_to_face, '
+          f'{differ_z} in zbuf')
+    assert covered > 0 and differ_pf == differ_z == 0
+
+
+def _round_to_float32(q):
+    """The float32 nearest the rational ``q``, ties to even (finite)."""
+    if q == 0:
+        return np.float32(0)
+    sign, q = (-1 if q < 0 else 1), abs(q)
+    e = q.numerator.bit_length() - q.denominator.bit_length()
+    if Fraction(2) ** e > q:
+        e -= 1                                   # 2^e <= q < 2^(e + 1)
+    scale = Fraction(2) ** (23 - max(e, -126))   # 24 bits, or subnormal
+    m = q * scale
+    k = m.numerator // m.denominator
+    rest = m - k
+    if rest > Fraction(1, 2) or (rest == Fraction(1, 2) and k % 2):
+        k += 1
+    return np.float32(sign * float(k / scale))
+
+
+def test_fma32_rounds_once():
+    """fma32 against the exact rational a * b + c rounded to float32,
+    ties to even: seeded values over many exponents, products that cancel
+    against c, and crafted cases where the exact sum is a float32 midpoint
+    or a hair beside one (where rounding twice, to float64 and then to
+    float32, goes wrong)."""
+    rng = np.random.RandomState(0)
+    a = (rng.randn(4000) * 2.0 ** rng.randint(-30, 30, 4000)).astype(
+        np.float32)
+    b = (rng.randn(4000) * 2.0 ** rng.randint(-30, 30, 4000)).astype(
+        np.float32)
+    c = (rng.randn(4000) * 2.0 ** rng.randint(-60, 60, 4000)).astype(
+        np.float32)
+    c[::4] = -(a[::4] * b[::4])                  # cancellation
+    one = 1 + 2.0 ** -12                         # one^2 = 1 + 2^-11 + 2^-24
+    crafted = [(one, one, 0.0), (one, one, 2.0 ** -80),
+               (one, one, -2.0 ** -80), (-one, one, 2.0 ** -80),
+               (one, -one, -2.0 ** -80), (one, one, -1.0),
+               (1 + 2.0 ** -23, 1 + 2.0 ** -23, 2.0 ** -70),
+               (1 + 2.0 ** -23, 1 - 2.0 ** -24, -1.0),
+               (3.0, 2.0 ** -149, 0.0), (2.0 ** -100, 2.0 ** -40, 0.0)]
+    a = np.concatenate([a, np.float32([x[0] for x in crafted])])
+    b = np.concatenate([b, np.float32([x[1] for x in crafted])])
+    c = np.concatenate([c, np.float32([x[2] for x in crafted])])
+    got = n(fma32(t(a), t(b), t(c)))
+    want = np.array([_round_to_float32(Fraction(float(x)) * Fraction(float(y))
+                                       + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    # the crafted cases decide by a single rounding: twice would tie to
+    # even where the exact sum lies past the midpoint
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert np.sum(twice[-len(crafted):] != want[-len(crafted):]) >= 2
+
+
+@pytest.mark.usefixtures('one_thread')
 def test_k5_plain_matches_scatter_golden():
     """The synthetic head at 128^2: K5 and the scatter golden share their
     edge and depth arithmetic, so any pixel where they differ must be a
@@ -200,6 +292,7 @@ def test_interpolate_face_attributes_matches_jax():
         assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
 
 
+@pytest.mark.usefixtures('one_thread')
 def test_impl_names():
     """The JAX package's rasterizer_impl names: each ported one reaches its
     kernel's plain version on the CPU; 'tiled' and 'scatter' raise."""
