@@ -42,7 +42,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      mean-abs of phase 6's);
  11. with --profile only, for the flagship (after phase 8) and the texture
      variant (in phase 9): the forward's stages in ms at batch 1 and 4, and
-     the device-busy share of 3 forwards from torch.profiler.
+     the device-busy share of 3 forwards from torch.profiler;
+ 12. the inference CLIs (next3d_tpu_torch/cli/main.py run) on the card, from
+     a format-1 snapshot of phase 6's weights with the 512^2 config's
+     G_kwargs and the head written as .obj and _kpt2d.txt files in a
+     temporary directory: the generator loaded from the snapshot against
+     phase 6's on phase 10's inputs (within phase 10's run-to-run spread),
+     gen-samples of seeds 0-1 with 256^3 shapes, reenact over 16 jittered
+     driving frames and gen-videos of a 2x2 grid over 8 frames, each
+     output checked and each command's K1 and K4 launches counted; K4 at
+     the shape path's chunk against its plain version; K4 raising under
+     grad mode. It logs gen-samples s/seed, the sigma grid's s and
+     points/s, reenact f/s with and without the frame writes and
+     gen-videos f/s, each beside the card's name and power limit.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -75,9 +87,11 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -93,6 +107,10 @@ RENDER_KW_FFHQ = dict(
     superresolution_noise_mode='none', sr_antialias=True,
     density_reg=0.25, density_reg_p_dist=0.004, reg_type='l1',
     decoder_lr_mul=1.0)
+# the generator's construction kwargs, as a snapshot stores them
+G_KWARGS = dict(z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
+                img_channels=3, sr_num_fp16_res=4,
+                rendering_kwargs=RENDER_KW_FFHQ)
 CSRC = 'next3d_tpu_torch/csrc/'
 LIBRARIES = ('raster_binned_uv', 'raster_binned_prep', 'triplane_sample',
              'raster_zbuffer', 'gather_row_blocks')
@@ -751,6 +769,150 @@ def profile_stages(name, stages, forward, n):
                                   row_limit=12, max_name_column_width=60))
 
 
+def check_clis(G, g_kwargs, mesh, lms, device, card, kernels, ref, spread,
+               inputs):
+    """Phase 12: the inference CLIs from a snapshot of ``G``, built with
+    ``g_kwargs``, on ``device`` (the card). ``ref`` is
+    phase 10's batch-4 forward under deterministic cuDNN, ``spread`` its
+    run-to-run max-abs there and ``inputs`` its (z, c, v). Returns the K1
+    and K4 launches of each command."""
+    import numpy as np
+    from next3d_tpu_torch.cli import main as cli
+    from next3d_tpu_torch.cli.common import camera_label, load_generator
+    from next3d_tpu_torch.cli.gen_samples import MAX_CHUNK
+    from next3d_tpu_torch.ops.triplane import (channels_last,
+                                               triplane_sample,
+                                               triplane_sample_plain)
+    from next3d_tpu_torch.render.shape_utils import create_samples
+    from next3d_tpu_torch.utils.checkpoint import save_snapshot
+    from next3d_tpu_torch.utils.synthetic_head import save_head
+    from next3d_tpu_torch.utils.weights import state_dict_to_params
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_cli_')
+    try:
+        obj, lms_path = save_head(os.path.join(tmp, 'head.obj'), mesh, lms)
+        snap = os.path.join(tmp, 'snapshot.pkl')
+        save_snapshot(snap, params_G_ema=state_dict_to_params(G.state_dict()),
+                      config={'G_kwargs': g_kwargs})
+        loaded = load_generator(snap, obj, device)
+        torch.backends.cudnn.deterministic = True
+        z, c, v = inputs
+        out = loaded(z, c, v, truncation_psi=0.7, truncation_cutoff=14,
+                     noise_mode='const')
+        torch.backends.cudnn.deterministic = False
+        err = max(float((out[k] - ref[k]).abs().max()) for k in ref)
+        log(f'generator loaded from the snapshot vs phase 6\'s, batch 4, '
+            f'deterministic cuDNN: max-abs {err:.3g} (run-to-run spread '
+            f'{spread:.3g})')
+        if not err <= spread:
+            raise RuntimeError('the snapshot generator disagrees')
+
+        launches = {}
+
+        def command(name, argv, expect):
+            stats, counts = counted(lambda: cli.run(argv + ['--device',
+                                                            str(device)]),
+                                    kernels)
+            launches[name] = {k: counts[k] for k in ('K1', 'K4')}
+            # a video is an .mp4 where imageio or OpenCV writes one, else a
+            # directory of PNG frames
+            expect = [os.path.splitext(p)[0] + '_frames' if p.endswith('.mp4')
+                      and not os.path.exists(p) else p for p in expect]
+            missing = [p for p in expect if not os.path.exists(p)
+                       or (os.path.isfile(p) and os.path.getsize(p) == 0)
+                       or (os.path.isdir(p) and not os.listdir(p))]
+            log(f'{name}: launches {counts}; outputs {len(expect)}, missing '
+                f'or empty {missing}')
+            if missing or min(launches[name].values()) <= 0:
+                raise RuntimeError(f'{name} wrote no output or did not run '
+                                   f'K1 and K4')
+            return stats
+
+        out_s = os.path.join(tmp, 'samples')
+        stats = command('gen-samples', [
+            'gen-samples', '--network', snap, '--seeds', '0-1', '--outdir',
+            out_s, '--shapes', 'True', '--shape-res', '256', '--obj-path',
+            obj, '--lms-path', lms_path],
+            [os.path.join(out_s, f'seed{s:04d}{ext}') for s in (0, 1)
+             for ext in ('.png', '.mrc')])
+        per_seed = stats['seconds_per_seed']
+        sigma_s = stats['sigma_seconds']
+        points = stats['sigma_points']
+        log(f'gen-samples: {[round(t, 3) for t in per_seed]} s a seed '
+            f'(3 views and the 256^3 sigma grid, writes included); sigma '
+            f'grid {[round(t, 3) for t in sigma_s]} s for {points} points, '
+            f'{points / min(sigma_s):.4g} points/s at best, on {card}')
+
+        # K4 at the shape path's shape: seed 0's planes, the first chunk
+        z0 = torch.from_numpy(np.random.RandomState(0).randn(
+            1, loaded.z_dim).astype(np.float32)).to(device)
+        head = torch.from_numpy(np.concatenate([mesh.verts, lms])[None]
+                                .astype(np.float32)).to(device)
+        ws = loaded.mapping(z0, torch.from_numpy(camera_label(0, 0)).to(
+            device), truncation_psi=0.7, truncation_cutoff=14)
+        planes = channels_last(loaded.build_planes(ws, head,
+                                                   noise_mode='const')[0])
+        m = min(1000000, MAX_CHUNK)
+        coords = torch.from_numpy(create_samples(256)[0][:m]).to(device)[None]
+        got = triplane_sample(planes, coords, 1.0)
+        want = triplane_sample_plain(planes, coords, 1.0)
+        k4_err = float((got - want).abs().max())
+        log(f'K4 at the shape path\'s chunk, planes {tuple(planes.shape)}, '
+            f'{m} points: max-abs {k4_err:.3g} against its plain version')
+        if not k4_err <= 1e-5:
+            raise RuntimeError('K4 disagrees at the shape path\'s chunk')
+        del got, want, planes, loaded
+
+        drive = os.path.join(tmp, 'drive')
+        os.makedirs(drive)
+        frames = head_batch(mesh, lms, 16, 'cpu').numpy()
+        labels = []
+        for i, f in enumerate(frames):
+            stem = f'frame{i:03d}'
+            save_head(os.path.join(drive, stem + '.obj'),
+                      mesh._replace(verts=f[:5023]), f[5023:])
+            labels.append([stem + '.png',
+                           camera_label(0.02 * i, 0.0)[0].tolist()])
+        with open(os.path.join(drive, 'dataset.json'), 'w') as fh:
+            json.dump({'labels': labels}, fh)
+        out_r = os.path.join(tmp, 'reenact')
+        stats = command('reenact', [
+            'reenact', '--network', snap, '--drive-root', drive, '--seeds',
+            '0', '--outdir', out_r, '--topology-path', obj],
+            [os.path.join(out_r, 'reenact_seed0000.mp4')])
+        n = stats['frames']
+        log(f'reenact: {n} frames at 512^2, batch 1, from the first frame '
+            f'to the last: {n / stats["seconds"]:.3f} f/s with the frame '
+            f'writes, {n / stats["seconds_without_writes"]:.3f} f/s without '
+            f'them, on {card}')
+
+        out_v = os.path.join(tmp, 'video')
+        stats = command('gen-videos', [
+            'gen-videos', '--network', snap, '--seeds', '0-3', '--grid', '2x2',
+            '--outdir', out_v, '--w-frames', '8', '--obj-path', obj,
+            '--lms-path', lms_path],
+            [os.path.join(out_v, 'interpolation.mp4')])
+        log(f'gen-videos: {stats["frames"]} frames of a 2x2 grid (4 images '
+            f'a frame, one batched call): {stats["frames"] / stats["seconds"]:.3f} '
+            f'f/s with the frame writes, on {card}')
+
+        # fault repaired: K4 has no backward, so it refuses grad mode
+        with torch.enable_grad():
+            planes = torch.zeros(1, 3, 8, 8, 32, device=device,
+                                 requires_grad=True)
+            try:
+                triplane_sample(planes, torch.zeros(1, 4, 3, device=device),
+                                1.0)
+            except RuntimeError as e:
+                log(f'K4 under grad mode with planes that require grad: '
+                    f'raises ({e})')
+            else:
+                raise RuntimeError('K4 ran under grad mode')
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
@@ -782,12 +944,11 @@ def main():
     log(f'kernel build {time.time() - t0:.1f} s')
 
     mesh, lms = load_head()
+    head_lms = lms   # phase 10 rebinds lms to the batch's landmarks
 
     def build(cls, **kw):
         t0 = time.time()
-        G = cls(z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
-                img_channels=3, topology_path=mesh,
-                rendering_kwargs=RENDER_KW_FFHQ, sr_num_fp16_res=4,
+        G = cls(topology_path=mesh, **G_KWARGS,
                 generator=torch.Generator().manual_seed(SEED), **kw)
         G = G.to(device).eval()
         log(f'{cls.__name__} {kw}: '
@@ -919,6 +1080,9 @@ def main():
             del Gi
         torch.backends.cudnn.deterministic = False
 
+        cli_launches = check_clis(G, G_KWARGS, mesh, head_lms, device, card,
+                                  kernels, ref, spread, (z[4], c[4], v[4]))
+
     names = {
         'K1': ('rasterize_binned_uv', 'raster_binned_uv.cu',
                'next3d_tpu/ops/pallas_raster.py:489'),
@@ -935,6 +1099,12 @@ def main():
     line = [dict(name=f'{k} {fn}', route='cuda', source=CSRC + src,
                  replaces=replaces, launches=launches[k], **stats[k])
             for k, (fn, src, replaces) in names.items()]
+    for entry in line:
+        # the launches of each CLI command of phase 12 (K1 and K4 only)
+        k = entry['name'].split()[0]
+        if k in ('K1', 'K4'):
+            entry['cli_launches'] = {cmd: n[k] for cmd, n in
+                                     cli_launches.items()}
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

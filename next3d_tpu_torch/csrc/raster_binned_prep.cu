@@ -24,11 +24,13 @@
 //
 // Exactness: the resolve kernels and their plain versions are held bit for
 // bit against each other, and the plain versions keep the torch prep. So
-// every coefficient rounds as torch's separate elementwise launches do:
-// each step with __fadd_rn / __fsub_rn / __fmul_rn / __frcp_rn, which nvcc
-// never contracts into an FMA, in the operation order of binned_prep, with
-// the z, u and v rows computed from the edge coefficient b0c before it is
-// set to -inf for a dropped face.
+// every coefficient rounds as binned_prep rounds it, in the form into which
+// XLA compiles the reference's prep on the CPU: the area and each edge's
+// constant term as fma(a, b, -(c * d)), each affine row as
+// fma(b2, a2, fma(b0, a0, b1 * a1)), each with __fmaf_rn, and every other
+// step with __fadd_rn / __fsub_rn / __fmul_rn / __frcp_rn, which nvcc never
+// contracts into an FMA, with the z, u and v rows computed from the edge
+// coefficient b0c before it is set to -inf for a dropped face.
 //
 // Segment order: the atomics place a segment's entries in no fixed order,
 // and the order changes from run to run. The outputs do not depend on it:
@@ -87,10 +89,10 @@ __device__ Face<kTile> face_setup(const float* __restrict__ verts,
     fc.y[i] = to_pixel(v[1], half);
     fc.z[i] = v[2];
   }
-  // (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
-  fc.area = __fsub_rn(
-      __fmul_rn(__fsub_rn(fc.x[1], fc.x[0]), __fsub_rn(fc.y[2], fc.y[0])),
-      __fmul_rn(__fsub_rn(fc.y[1], fc.y[0]), __fsub_rn(fc.x[2], fc.x[0])));
+  // fma(x1 - x0, y2 - y0, -((y1 - y0) * (x2 - x0)))
+  fc.area = __fmaf_rn(
+      __fsub_rn(fc.x[1], fc.x[0]), __fsub_rn(fc.y[2], fc.y[0]),
+      -__fmul_rn(__fsub_rn(fc.y[1], fc.y[0]), __fsub_rn(fc.x[2], fc.x[0])));
   fc.keep = fc.area > 1e-8f;
 
   const int n = size / kTile;  // tiles a side
@@ -175,22 +177,22 @@ count_kernel(const float* __restrict__ verts,
 __device__ __forceinline__ void edge(float xa, float ya, float xb, float yb,
                                      float inv, float* c, float* gx,
                                      float* gy) {
-  // ((yb - ya) * xa - (xb - xa) * ya) * inv, -(yb - ya) * inv,
+  // fma(yb - ya, xa, -((xb - xa) * ya)) * inv, -(yb - ya) * inv,
   // (xb - xa) * inv
   const float dy = __fsub_rn(yb, ya), dx = __fsub_rn(xb, xa);
-  *c = __fmul_rn(__fsub_rn(__fmul_rn(dy, xa), __fmul_rn(dx, ya)), inv);
+  *c = __fmul_rn(__fmaf_rn(dy, xa, -__fmul_rn(dx, ya)), inv);
   *gx = __fmul_rn(-dy, inv);
   *gy = __fmul_rn(dx, inv);
 }
 
 // The (c, x, y) rows of the affine form of corner values a0, a1, a2 from
-// the edge rows b: (b0 * a0 + b1 * a1) + b2 * a2 for each of c, x, y.
+// the edge rows b: fma(b2, a2, fma(b0, a0, b1 * a1)) for each of c, x, y.
 __device__ __forceinline__ void affine(const float* b, float a0, float a1,
                                        float a2, float* out) {
 #pragma unroll
   for (int k = 0; k < 3; ++k)
-    out[k] = __fadd_rn(__fadd_rn(__fmul_rn(b[k], a0), __fmul_rn(b[3 + k], a1)),
-                       __fmul_rn(b[6 + k], a2));
+    out[k] = __fmaf_rn(b[6 + k], a2,
+                       __fmaf_rn(b[k], a0, __fmul_rn(b[3 + k], a1)));
 }
 
 template <int kTile, bool kUV>

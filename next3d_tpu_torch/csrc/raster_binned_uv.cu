@@ -20,11 +20,12 @@
 // the smallest z wins, ties going to the smaller face id; the output is its
 // id and its affine (u, v) or its z, or -1 / 0 / 0 (K1, K3) and -1 / 1e10
 // (K2) when no face covers the pixel. Every coefficient row is evaluated
-// as (c + x*gx) + y*gy with __fmul_rn / __fadd_rn: nvcc would otherwise
-// contract it into an FMA, which rounds differently from the plain torch
-// version and can flip pixels on triangle edges. The three instances share
-// that arithmetic and the coefficients, so they agree with each other bit
-// for bit on the pixels they all emit.
+// as fma(y, gy, fma(x, gx, c)) with __fmaf_rn, the fused form into which
+// XLA compiles the reference on the CPU and which the plain torch version
+// evaluates (ops/raster.py row_at): any other rounding can flip pixels on
+// triangle edges. The three instances share that arithmetic and the
+// coefficients, so they agree with each other bit for bit on the pixels
+// they all emit.
 //
 // Design, coarse to fine. A block of 8 warps takes one image's 16 x 16
 // pixel quad and streams the whole segment of the tile that holds it (no
@@ -41,12 +42,12 @@
 // fine test and without bank conflicts when 32 lanes read 32 candidates.
 //
 // The coarse test is exact. Its value is the row's own rounded expression
-// fl(fl(c + fl(x*gx)) + fl(y*gy)) at the sub-tile's corner whose x is the
-// largest if gx >= 0 (else the smallest) and likewise for y. Rounding to
-// nearest is monotone, so for finite coefficients that expression is
-// monotone in x (in gx's direction) for any fixed y, and in y (in gy's
-// direction) for any fixed x: its largest value over the sub-tile's pixels
-// is the one at that corner. An edge whose corner value is not >= 0 (also
+// fma(y, gy, fma(x, gx, c)) at the sub-tile's corner whose x is the largest
+// if gx >= 0 (else the smallest) and likewise for y. A fused multiply-add
+// rounds its exact value to nearest, which is monotone, so for finite
+// coefficients the inner fma is monotone in gx (in x's direction), the outer
+// one in its addend and in gy (in y's direction): the expression's largest
+// value over the sub-tile's pixels is the one at that corner. An edge whose corner value is not >= 0 (also
 // NaN, and -inf, the b0c of a dropped face) therefore fails at every pixel
 // of the sub-tile, and culling the candidate there changes no pixel's set of
 // covering candidates. The outputs stay bit-equal to the plain version.
@@ -82,7 +83,7 @@ constexpr float kNoFace = 1073741824.0f;  // 2^30
 
 __device__ __forceinline__ float affine(float c, float x, float y, float gx,
                                         float gy) {
-  return __fadd_rn(__fadd_rn(c, __fmul_rn(x, gx)), __fmul_rn(y, gy));
+  return __fmaf_rn(y, gy, __fmaf_rn(x, gx, c));
 }
 
 // The row's value at the corner of [x0, x0 + kSubW - 1] x [y0, y0 + kSubH - 1]

@@ -32,6 +32,7 @@ from ..ops.grid_sample import grid_sample_2d
 from ..ops.interpolate import (interpolate_nearest, paste_resized_region,
                                resample_region)
 from ..ops.raster import TILE
+from ..ops.triplane import channels_last
 from ..render.fill_mouth import fill_mouth
 from ..render.mesh import angle2matrix, batch_orth_proj, face_vertices
 from ..render.rasterizer import (rasterize_uv_with_alpha,
@@ -354,6 +355,32 @@ class TriPlaneGenerator(nn.Module):
             generator=generator)
         return {'image': sr_image, 'image_raw': rgb_image,
                 'image_depth': depth_image}
+
+    # ------------------------------------------------------------------ sample
+    def sample_mixed(self, coordinates, directions, ws, v,
+                     noise_mode='random', generator=None):
+        """Density and colour at arbitrary 3D points (N, M, 3) (JAX :524):
+        the planes of ``ws`` and the expression ``v``, then the decoder."""
+        planes, _ = self.build_planes(ws, v, noise_mode=noise_mode,
+                                      generator=generator)
+        return self.sample_with_planes(planes, coordinates, directions)
+
+    def sample(self, coordinates, directions, z, c, v, truncation_psi=1,
+               truncation_cutoff=None, **kwargs):
+        ws = self.mapping(z, c, truncation_psi=truncation_psi,
+                          truncation_cutoff=truncation_cutoff)
+        return self.sample_mixed(coordinates, directions, ws, v, **kwargs)
+
+    def sample_with_planes(self, planes, coordinates, directions,
+                           generator=None):
+        """Decode sigma and rgb from prebuilt planes (N, 3, 32, H, W), as
+        ``build_planes`` returns them: shape extraction builds them once and
+        decodes its chunks from them. ``generator`` is accepted for the JAX
+        signature; the renderer's training-time density noise, which would
+        draw from it, is not ported."""
+        return self.renderer.run_model(channels_last(planes), self.decoder,
+                                       coordinates, directions,
+                                       self.rendering_kwargs)
 
     # ------------------------------------------------------------------ forward
     def forward(self, z, c, v, truncation_psi=1, truncation_cutoff=None,

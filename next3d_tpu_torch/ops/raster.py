@@ -23,6 +23,16 @@ resolves take per pixel the lexicographic minimum of (z, face id) over the
 covering candidates, so their results are bit-equal and do not depend on
 the order of a segment's entries.
 
+Rounding. On the CPU, XLA contracts the reference's ``a*b - c*d`` and its
+sums of products into fused multiply-adds, in the prep and in the kernels'
+per-pixel rows alike. The port evaluates that form: the area and each
+edge's constant term as ``fma(a, b, -(c*d))``, each affine row as
+``fma(b2, a2, fma(b0, a0, b1*a1))`` and each row at a pixel as
+``fma(gy, y, fma(gx, x, c))`` (``row_at``), with ``fma32``
+(ops/raster_zbuffer.py) in torch and ``__fmaf_rn`` in the kernels. So the
+plain versions equal JAX's interpret-mode kernels bit for bit, in
+pix_to_face and in (u, v) or zbuf, and the kernels equal the plain versions.
+
 Exactness: a face's bbox must span less than 32 px, so that its entries
 reach every tile it overlaps (the model checks this for its topology at
 construction). K1, K2 and K3 then agree with each other bit for bit.
@@ -33,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_build
+from .raster_zbuffer import fma32
 
 TILE = 32
 TILE16 = 16
@@ -44,6 +55,22 @@ N_COEFF = 19
 N_COEFF_Z = 13  # without (u, v)
 PLAIN_CHUNK_ELEMS = 1 << 24  # (tile, candidate, pixel) triples per plain step
 SUB_W, SUB_H = 8, 4  # sub-tile of the resolve kernels' coarse test, px
+
+
+def row_at(c, gx, gy, x, y):
+    """A coefficient row (c, gx, gy) at pixel (x, y), rounded as the
+    reference rounds it: fma(gy, y, fma(gx, x, c))."""
+    return fma32(gy, y, fma32(gx, x, c))
+
+
+def row_nonnegative(c, gx, gy, x, y):
+    """``row_at(c, gx, gy, x, y) >= 0`` for pixel coordinates that are
+    integers in [0, 2^29), without rounding the outer fma: in float64,
+    y * gy is exact and adding fma(gx, x, c) rounds once, which keeps the
+    sign, and so would the float32 rounding of the fused value (a non-zero
+    value is a multiple of 2^-149, which rounds to a non-zero float32).
+    Infinities and NaNs propagate as in ``row_at``."""
+    return gy.double() * y.double() + fma32(gx, x, c).double() >= 0
 
 
 def face_corners(verts, faces, image_size):
@@ -60,7 +87,7 @@ def face_corners(verts, faces, image_size):
     fz = verts[..., 2][:, faces]
     x0, x1, x2 = fx.unbind(-1)
     y0, y1, y2 = fy.unbind(-1)
-    area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    area = fma32(x1 - x0, y2 - y0, -((y1 - y0) * (x2 - x0)))
     return fx, fy, fz, area
 
 
@@ -93,7 +120,7 @@ def binned_prep(verts, faces, face_attrs, image_size, tile=TILE):
                       torch.zeros_like(area))
 
     def edge_coeffs(xa, ya, xb, yb):
-        return (((yb - ya) * xa - (xb - xa) * ya) * inv,
+        return (fma32(yb - ya, xa, -((xb - xa) * ya)) * inv,
                 -(yb - ya) * inv, (xb - xa) * inv)
 
     b0c, b0x, b0y = edge_coeffs(x1, y1, x2, y2)
@@ -101,9 +128,8 @@ def binned_prep(verts, faces, face_attrs, image_size, tile=TILE):
     b2c, b2x, b2y = edge_coeffs(x0, y0, x1, y1)
 
     def affine(a0, a1, a2):
-        return (b0c * a0 + b1c * a1 + b2c * a2,
-                b0x * a0 + b1x * a1 + b2x * a2,
-                b0y * a0 + b1y * a1 + b2y * a2)
+        return tuple(fma32(r2, a2, fma32(r0, a0, r1 * a1)) for r0, r1, r2 in
+                     ((b0c, b1c, b2c), (b0x, b1x, b2x), (b0y, b1y, b2y)))
 
     rows = [*affine(z0, z1, z2)]
     if face_attrs is not None:
@@ -177,6 +203,7 @@ def _resolve_plain(slab, starts, image_size, tile):
     count = (starts[:, 1:] - starts[:, :-1]).reshape(-1).long()
     rows = slab.transpose(1, 2).reshape(B * E, K)
     pix = torch.arange(P, device=dev)
+    span = torch.arange(tile, device=dev)
     # tiles by falling segment length, so that a chunk pads its candidates
     # only to its own longest segment; empty tiles keep the initial values
     order = torch.argsort(count, descending=True)
@@ -186,22 +213,31 @@ def _resolve_plain(slab, starts, image_size, tile):
         L = lengths[c0]
         bt = order[c0:c0 + max(1, PLAIN_CHUNK_ELEMS // (L * P))]
         c0 += bt.numel()
-        gx = (((bt % T) % Tx) * tile)[:, None] + pix % tile     # (c, P)
-        gy = (((bt % T) // Tx) * tile)[:, None] + pix // tile
-        gx, gy = gx.float(), gy.float()
+        x0 = ((bt % T) % Tx) * tile                             # (c,)
+        y0 = ((bt % T) // Tx) * tile
+        gx = (x0[:, None] + pix % tile).float()                 # (c, P)
+        gy = (y0[:, None] + pix // tile).float()
+        xs = (x0[:, None] + span).float()[:, None]              # (c, 1, tile)
+        ys = (y0[:, None] + span).float()[:, None, :, None]     # (c, 1, tile, 1)
         lane = torch.arange(L, device=dev)
         valid = lane[None] < count[bt, None]                    # (c, L)
         idx = torch.where(valid, first[bt, None] + lane[None], 0)
         cf = rows[(bt // T * E)[:, None] + idx]                 # (c, L, K)
-        cx, cy = gx[:, None], gy[:, None]                       # (c, 1, P)
 
-        def aff(j):
-            return (cf[..., j, None] + cf[..., j + 1, None] * cx) \
-                + cf[..., j + 2, None] * cy                     # (c, L, P)
+        def nonnegative(j):
+            # row j >= 0 at every pixel of the tile, (c, L, P)
+            return row_nonnegative(
+                cf[..., j, None, None], cf[..., j + 1, None, None],
+                cf[..., j + 2, None, None], xs[:, None], ys).reshape(-1, L, P)
 
-        inside = (aff(0) >= 0) & (aff(3) >= 0) & (aff(6) >= 0) \
+        inside = nonnegative(0) & nonnegative(3) & nonnegative(6) \
             & valid[..., None]
-        z = torch.where(inside, aff(9), BIG_Z)
+        # the depth, exactly rounded, only where the candidate covers
+        ci, li, pi = inside.nonzero(as_tuple=True)
+        z = torch.full(inside.shape, BIG_Z, device=dev)
+        zx = fma32(cf[..., 10, None], xs, cf[..., 9, None])    # (c, L, tile)
+        z[ci, li, pi] = fma32(cf[ci, li, 11], gy[ci, pi],
+                              zx[ci, li, pi % tile])
         zmin = torch.clamp(z.min(dim=1).values, max=BIG_Z)      # (c, P)
         fid = torch.where(inside & (z == zmin[:, None]),
                           cf[..., K - 1, None], NO_FACE)
@@ -214,8 +250,8 @@ def _resolve_plain(slab, starts, image_size, tile):
         # a face has at most one entry per tile, so (z, fid) names one lane
         win = (fid == fmin[:, None]).float().argmax(dim=1)      # (c, P)
         sel = cf.gather(1, win[..., None].expand(-1, -1, K))    # (c, P, K)
-        u = (sel[..., 12] + sel[..., 13] * gx) + sel[..., 14] * gy
-        v = (sel[..., 15] + sel[..., 16] * gx) + sel[..., 17] * gy
+        u = row_at(sel[..., 12], sel[..., 13], sel[..., 14], gx, gy)
+        v = row_at(sel[..., 15], sel[..., 16], sel[..., 17], gx, gy)
         outs[0][bt] = torch.where(hit, u, 0.0)
         outs[1][bt] = torch.where(hit, v, 0.0)
 
@@ -231,8 +267,8 @@ def cull_plain(slab, starts, image_size, tile):
     chip_smoke.py (no resolve calls it). A tile holds (tile / SUB_W) x
     (tile / SUB_H) sub-tiles of SUB_W x SUB_H pixels, numbered row by row.
     An entry survives in a sub-tile of its tile when each of its three edge
-    rows, evaluated as (c + x*gx) + y*gy at the sub-tile corner whose x is
-    the largest if gx >= 0 (else the smallest) and likewise for y, is >= 0.
+    rows, evaluated by ``row_at`` at the sub-tile corner whose x is the
+    largest if gx >= 0 (else the smallest) and likewise for y, is >= 0.
 
     Returns (B, E, S) bool, False for the entries past ``starts[:, T]``."""
     B, _, E = slab.shape
@@ -251,7 +287,7 @@ def cull_plain(slab, starts, image_size, tile):
         c, gx, gy = (slab[:, e + d, :, None] for d in range(3))
         x = torch.where(gx >= 0, x0 + (SUB_W - 1), x0).float()
         y = torch.where(gy >= 0, y0 + (SUB_H - 1), y0).float()
-        keep = keep & ((c + gx * x) + gy * y >= 0)
+        keep = keep & (row_at(c, gx, gy, x, y) >= 0)
     return keep
 
 

@@ -10,7 +10,11 @@ The planes are passed channels-last, (N, 3, H, W, C) contiguous
 forward and each tap's channels are one 128 B line. ``triplane_sample``
 launches the kernel in ``csrc/triplane_sample.cu`` for CUDA tensors (C = 32
 only; any other C raises) and runs the plain ``F.grid_sample`` version for
-CPU tensors. Inference only: no backward yet.
+CPU tensors. The kernel has no backward yet (ROADMAP.md Queue 2 item 1): on
+a CUDA tensor, with grad mode on and planes or coordinates that require
+grad, ``triplane_sample`` raises rather than return a result that gradients
+would silently skip. Card callers run under ``torch.no_grad()``; the CPU
+path stays differentiable.
 """
 
 from __future__ import annotations
@@ -92,6 +96,12 @@ def _sample_cuda(planes_cl, coordinates, box_warp):
 def triplane_sample(planes_cl, coordinates, box_warp):
     """planes_cl (N, 3, H, W, C), coordinates (N, M, 3) -> (N, 3, M, C)."""
     if planes_cl.is_cuda:
+        if torch.is_grad_enabled() and (planes_cl.requires_grad
+                                        or coordinates.requires_grad):
+            raise RuntimeError(
+                'the K4 kernel has no backward yet (ROADMAP.md Queue 2 item '
+                '1, K4\'s backward): run it under torch.no_grad(), or on CPU '
+                'tensors, which take the differentiable F.grid_sample path')
         return _sample_cuda(planes_cl, coordinates, box_warp)
     return triplane_sample_plain(planes_cl, coordinates, box_warp)
 

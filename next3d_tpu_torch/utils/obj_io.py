@@ -1,4 +1,5 @@
-"""Mesh and landmark readers: ``ObjMesh``, ``load_obj`` and ``load_lms``.
+"""Mesh and landmark readers: ``ObjMesh``, ``load_obj``, ``load_obj_verts``
+and ``load_lms``.
 
 Counterpart of next3d_tpu/utils/obj_io.py, kept as the port's own numpy
 copy (the port imports nothing of the JAX package). The JAX package's
@@ -49,6 +50,18 @@ def load_obj(path) -> ObjMesh:
         verts_uvs=np.asarray(uvs, np.float32) if uvs else None,
         faces_uvs=np.asarray(faces_uv, np.int32) if faces_uv else None,
     )
+
+
+def load_obj_verts(path) -> np.ndarray:
+    """The vertices of a Wavefront .obj alone, (V, 3) float32."""
+    verts = []
+    with open(path, 'r') as f:
+        for line in f:
+            if line.startswith('v '):
+                parts = line.split()
+                verts.append((float(parts[1]), float(parts[2]),
+                              float(parts[3])))
+    return np.asarray(verts, np.float32)
 
 
 def load_lms(path) -> np.ndarray:

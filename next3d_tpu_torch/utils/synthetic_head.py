@@ -17,9 +17,15 @@ the GPU smoke run need no external asset:
 Faces are wound so that, after the generator's [0, 2, 1] reorder, the
 rasterizer's back-face culling keeps the faces that look at each of the
 four orthographic views.
+
+``save_head`` writes a head as the files the CLIs read: an .obj of v, vt and
+``f v/vt`` rows and a ``<stem>_kpt2d.txt`` of its landmarks, with every
+float written so that it reads back bit for bit.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -124,3 +130,23 @@ def synthetic_head():
                    faces_uvs=np.arange(3 * len(faces), dtype=np.int32)
                    .reshape(-1, 3))
     return mesh, _landmarks()
+
+
+def save_head(obj_path, mesh=None, lms=None):
+    """Write ``mesh`` (an ``ObjMesh`` with UVs) and ``lms`` (68, 3), by
+    default the synthetic head, as ``obj_path`` and the landmark file beside
+    it. Returns (obj_path, lms_path)."""
+    if mesh is None:
+        mesh, head_lms = synthetic_head()
+        lms = head_lms if lms is None else lms
+    lines = [f'v {x:.9g} {y:.9g} {z:.9g}' for x, y, z in
+             np.asarray(mesh.verts, np.float32).tolist()]
+    lines += [f'vt {u:.9g} {v:.9g}' for u, v in
+              np.asarray(mesh.verts_uvs, np.float32).tolist()]
+    lines += ['f ' + ' '.join(f'{a + 1}/{t + 1}' for a, t in zip(fv, ft))
+              for fv, ft in zip(mesh.faces.tolist(), mesh.faces_uvs.tolist())]
+    with open(obj_path, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    lms_path = os.path.splitext(obj_path)[0] + '_kpt2d.txt'
+    np.savetxt(lms_path, np.asarray(lms, np.float32), fmt='%.9g')
+    return obj_path, lms_path

@@ -1,10 +1,12 @@
-"""The weight bridge: JAX parameter trees into the port's modules.
+"""The weight bridge between JAX parameter trees and the port's modules.
 
 The JAX package names its parameters by torch ``state_dict`` paths, one
 path component per dict level, so flattening a tree with
-``params_to_state_dict`` gives the port's state_dict keys. Static FIR
+``params_to_state_dict`` gives the port's state_dict keys, and nesting a
+state_dict with ``state_dict_to_params`` gives a JAX tree. Static FIR
 filters are non-persistent buffers that the port builds itself, so they
-are neither expected nor loaded.
+are neither expected nor loaded, and a state_dict that carries them (a
+reference checkpoint's) drops them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,29 @@ def params_to_state_dict(params, prefix=''):
         else:
             out[name] = np.asarray(v)
     return out
+
+
+# buffers that are deterministic functions of the config, never parameters
+_STATIC_BUFFERS = ('resample_filter', 'up_filter', 'down_filter')
+
+
+def state_dict_to_params(state_dict):
+    """Nest a flat dotted state_dict (torch tensors or arrays) into a tree
+    of numpy arrays, one dict level per name component, leaving out the
+    static filters (the port's copy of next3d_tpu/utils/pkl_import.py
+    state_dict_to_params, with numpy leaves)."""
+    params = {}
+    for key, value in state_dict.items():
+        parts = key.split('.')
+        if parts[-1] in _STATIC_BUFFERS:
+            continue
+        node = params
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        node[parts[-1]] = np.array(value)
+    return params
 
 
 def load_jax_params(module, params):

@@ -50,6 +50,7 @@ from next3d_tpu_torch.render.camera_utils import (fov_to_intrinsics,
                                                   lookat_pose)
 from next3d_tpu_torch.render.ray_sampler import sample_rays
 from next3d_tpu_torch.render.renderer import sample_stratified
+from next3d_tpu_torch.render.shape_utils import create_samples
 from next3d_tpu_torch.utils.raster_cases import (adversarial_mesh,
                                                  four_views, sliver_sweep,
                                                  zbuffer_mesh)
@@ -310,6 +311,39 @@ def test_k4_kernel_ragged_and_far_out_points(device, n, m, box_warp):
     assert got.shape == (n, 3, m, 32)
     assert torch.all(got[:, :, ::7] == 0)
     assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_k4_kernel_at_the_shape_chunk(device):
+    """The shape path's launch: N = 1 and the first chunk of gen-samples'
+    256^3 sigma grid (1,000,000 points, cli/gen_samples.py)."""
+    g = torch.Generator(device=device).manual_seed(2)
+    planes = channels_last(torch.randn(1, 3, 32, 256, 256, generator=g,
+                                       device=device))
+    coords = torch.from_numpy(create_samples(256)[0][:1000000]).to(
+        device)[None]
+    before = triplane_sample.launches
+    got = triplane_sample(planes, coords, 1.0)
+    want = triplane_sample_plain(planes, coords, 1.0)
+    torch.cuda.synchronize()
+    assert triplane_sample.launches == before + 1
+    assert got.shape == (1, 3, 1000000, 32)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_k4_kernel_raises_under_grad_mode(device):
+    """K4 has no backward: under grad mode it refuses planes or
+    coordinates that require grad, rather than return an output that
+    gradients skip; under no_grad it runs."""
+    planes = channels_last(torch.randn(1, 3, 32, 16, 16, device=device))
+    coords = torch.rand(1, 100, 3, device=device) - 0.5
+    for p, c in ((planes.clone().requires_grad_(), coords),
+                 (planes, coords.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match='no backward'):
+            triplane_sample(p, c, 1.0)
+        with torch.no_grad():
+            out = triplane_sample(p, c, 1.0)
+        assert out.shape == (1, 3, 100, 32) and not out.requires_grad
+    assert triplane_sample(planes, coords, 1.0).shape == (1, 3, 100, 32)
 
 
 def test_k4_kernel_rejects_other_channel_counts(device):

@@ -15,7 +15,8 @@ from next3d_tpu.ops.pallas_raster import rasterize_mesh_pallas_binned_uv
 from next3d_tpu.render.rasterizer import rasterize_mesh, required_patch_size
 from next3d_tpu_torch.ops.raster import (_resolve_plain, binned_prep,
                                          rasterize_binned_uv,
-                                         rasterize_binned_uv_plain,
+                                         rasterize_binned_uv_plain, row_at,
+                                         row_nonnegative,
                                          segments_in_face_order)
 from next3d_tpu_torch.utils.raster_cases import four_views
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
@@ -45,13 +46,13 @@ def test_plain_matches_jax_kernel_interpret():
         torch.from_numpy(verts), torch.from_numpy(faces),
         torch.from_numpy(attrs), H))
     assert pf.dtype == np.int32 and pf.shape == (2, H, H)
-    # same prep arithmetic and tie rule: visibility is bit-equal
+    # the same arithmetic, rounded in the same fused form, and the same tie
+    # rule: every output is bit-equal
     np.testing.assert_array_equal(pf, pf_j)
     covered = pf >= 0
     assert 0.05 < covered.mean() < 0.9
-    # tolerance of tests/test_rasterizer.py:283-290 (sliver faces)
-    np.testing.assert_allclose(u[covered], u_j[covered], rtol=1e-4, atol=2e-3)
-    np.testing.assert_allclose(v[covered], v_j[covered], rtol=1e-4, atol=2e-3)
+    np.testing.assert_array_equal(u, u_j)
+    np.testing.assert_array_equal(v, v_j)
     assert np.all(u[~covered] == 0) and np.all(v[~covered] == 0)
 
 
@@ -123,33 +124,34 @@ def test_four_views_match_jax_kernel_and_scatter():
     """The flagship's own rasterizer input: a jittered expression of the
     head through the 4 orthographic views at the init orth scale and shift
     (TriPlaneGenerator.rasterize), 256^2, with the model's face UVs. The
-    JAX kernel in interpret mode rounds K1's affine evaluations in another
-    order than the port, and the scatter golden evaluates them in another
-    form, so a few pixels differ: held at >= 99.98% agreement, the bound of
-    tests/test_rasterizer.py:181-206, each differing pixel shown in float64
-    to be a float32 rounding tie (an edge through the pixel centre, or two
-    covering faces at one depth), and (u, v) where the face agrees."""
+    port rounds K1's prep and per-pixel rows in the fused form into which
+    XLA compiles the JAX kernel in interpret mode, so all three outputs are
+    bit-equal to it (with each product rounded apart, 10 of the 262,144
+    pixels differed here). The scatter golden evaluates its edges and depth
+    in another form, so a few pixels differ from it: held at >= 99.98%
+    agreement, the bound of tests/test_rasterizer.py:181-206, each differing
+    pixel shown in float64 to be a float32 rounding tie (an edge through
+    the pixel centre, or two covering faces at one depth)."""
     tv, faces, attrs = _four_views(6)
-    pf, u, _ = (a.numpy() for a in rasterize_binned_uv(
+    got = [a.numpy() for a in rasterize_binned_uv(
         torch.from_numpy(tv), torch.from_numpy(faces),
-        torch.from_numpy(attrs), 256))
-    pf_k, u_k, _ = (np.asarray(a) for a in rasterize_mesh_pallas_binned_uv(
+        torch.from_numpy(attrs), 256)]
+    want = [np.asarray(a) for a in rasterize_mesh_pallas_binned_uv(
         jnp.asarray(tv), jnp.asarray(faces), jnp.asarray(attrs), 256, 4096,
-        True))
+        True)]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    pf = got[0]
     patch = int(required_patch_size(tv, faces, 256)) + 2
     pf_s = np.asarray(rasterize_mesh(jnp.asarray(tv), jnp.asarray(faces), 256,
                                      patch=patch)[0])
-    for name, other in (('K1 interpret', pf_k), ('scatter', pf_s)):
-        differ = int((pf != other).sum())
-        print(f'port K1 vs JAX {name}: {differ} of {pf.size} px differ, '
-              f'coverage on {int(((pf >= 0) != (other >= 0)).sum())}')
-        assert differ <= 2e-4 * pf.size, name
-        for b, y, x in zip(*np.nonzero(pf != other)):
-            fids = (int(pf[b, y, x]), int(other[b, y, x]))
-            assert _rounding_tie(tv[b], faces, fids, x, y, 256), \
-                (name, b, y, x)
-    same = pf == pf_k
-    np.testing.assert_allclose(u[same], u_k[same], rtol=1e-4, atol=2e-3)
+    differ = int((pf != pf_s).sum())
+    print(f'port K1 vs JAX scatter: {differ} of {pf.size} px differ, '
+          f'coverage on {int(((pf >= 0) != (pf_s >= 0)).sum())}')
+    assert differ <= 2e-4 * pf.size
+    for b, y, x in zip(*np.nonzero(pf != pf_s)):
+        fids = (int(pf[b, y, x]), int(pf_s[b, y, x]))
+        assert _rounding_tie(tv[b], faces, fids, x, y, 256), (b, y, x)
 
 
 def _rounding_tie(verts, faces, fids, x, y, H):
@@ -186,3 +188,35 @@ def _rounding_tie(verts, faces, fids, x, y, H):
         return edge <= 4 or depth <= 2
     print()
     return edge <= 4
+
+
+def test_row_nonnegative_is_the_sign_of_row_at():
+    """The plain resolve decides each edge by row_nonnegative, the sign of
+    the fused row_at taken without its outer rounding. On random rows at
+    pixel coordinates, on rows made to vanish at a pixel (an edge through
+    its centre, zero and subnormal terms) and on infinite and NaN terms,
+    both decide alike."""
+    rng = np.random.RandomState(0)
+    n = 200000
+    x = rng.randint(0, 512, n).astype(np.float32)
+    y = rng.randint(0, 512, n).astype(np.float32)
+    gx = (rng.randn(n) * 10.0 ** rng.uniform(-6, 3, n)).astype(np.float32)
+    gy = (rng.randn(n) * 10.0 ** rng.uniform(-6, 3, n)).astype(np.float32)
+    c = (rng.randn(n) * 10.0 ** rng.uniform(-3, 4, n)).astype(np.float32)
+    # a third of the rows: c = -(gx x + gy y) rounded, so the exact value
+    # is a tiny residue of either sign or 0
+    k = n // 3
+    c[:k] = (-(gx[:k].astype(np.float64) * x[:k]
+               + gy[:k].astype(np.float64) * y[:k])).astype(np.float32)
+    # terms that are exactly zero, subnormal, infinite or NaN
+    tiny = np.float32(1e-45)
+    c[k:k + 8] = [0, -0.0, tiny, -tiny, np.inf, -np.inf, np.nan, 0]
+    gx[k + 8:k + 16] = [0, tiny, -tiny, np.inf, -np.inf, np.nan, 0, 0]
+    gy[k + 16:k + 24] = [0, tiny, -tiny, np.inf, -np.inf, np.nan, 0, 0]
+    x[k + 8:k + 24] = 0
+    args = [torch.from_numpy(a) for a in (c, gx, gy, x, y)]
+    want = row_at(*args) >= 0
+    got = row_nonnegative(*args)
+    assert 0.3 < float(want.float().mean()) < 0.7
+    assert int((row_at(*[a[:k] for a in args]) == 0).sum()) > 100
+    assert torch.equal(got, want)

@@ -11,7 +11,8 @@ import torch
 
 from next3d_tpu_torch.ops.raster import (SUB_H, SUB_W, TILE, _resolve_plain,
                                          binned_prep, cull_plain,
-                                         face_corners)
+                                         face_corners, row_at,
+                                         row_nonnegative)
 from next3d_tpu_torch.utils.raster_cases import adversarial_mesh, four_views
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 
@@ -50,8 +51,9 @@ def _sub_of_pixels(H, tile):
 @pytest.mark.parametrize('tile', [32, 16])
 def test_culled_candidates_cover_no_pixel_of_their_sub_tile(case, tile):
     """Every (entry, sub-tile) pair that cull_plain drops is tested at each
-    of the sub-tile's pixels with the resolve's per-pixel arithmetic, each
-    operation a separate float32 torch op: none passes all three edges.
+    of the sub-tile's pixels with the resolve's per-pixel arithmetic (the
+    sign of the fused row_at, row_nonnegative): none passes all three
+    edges.
     And culling does its work: under half of the pairs survive."""
     slab, starts, H = _slab(case, False, tile)
     keep = cull_plain(slab, starts, H, tile)
@@ -62,17 +64,19 @@ def test_culled_candidates_cover_no_pixel_of_their_sub_tile(case, tile):
     valid = t < (H // tile) ** 2
     Tx = H // tile
     t = t.clamp(max=Tx * Tx - 1)
-    p = torch.arange(SUB_W * SUB_H)
     for s in range(S):
-        x = ((t % Tx) * tile + (s % (tile // SUB_W)) * SUB_W)[..., None] \
-            + p % SUB_W                                          # (B, E, P)
-        y = ((t // Tx) * tile + (s // (tile // SUB_W)) * SUB_H)[..., None] \
-            + p // SUB_W
+        # the sub-tile's columns (B, E, 1, SUB_W) and rows (B, E, SUB_H, 1)
+        x = ((t % Tx) * tile + (s % (tile // SUB_W)) * SUB_W)[..., None,
+                                                              None] \
+            + torch.arange(SUB_W)
+        y = ((t // Tx) * tile + (s // (tile // SUB_W)) * SUB_H)[..., None,
+                                                               None] \
+            + torch.arange(SUB_H)[:, None]
         x, y = x.float(), y.float()
-        inside = (valid & ~keep[..., s])[..., None]
+        inside = (valid & ~keep[..., s])[..., None, None]
         for e in (0, 3, 6):
-            c, gx, gy = (slab[:, e + d, :, None] for d in range(3))
-            inside = inside & ((c + gx * x) + gy * y >= 0)
+            c, gx, gy = (slab[:, e + d, :, None, None] for d in range(3))
+            inside = inside & row_nonnegative(c, gx, gy, x, y)
         assert not bool(inside.any()), (case, tile, s)
     kept = int(keep.sum())
     n = int(valid.sum())
@@ -143,15 +147,15 @@ def test_adversarial_mesh_has_its_edge_cases():
     p = torch.arange(TILE * TILE)
     x = (((t % (H // TILE)) * TILE)[..., None] + p % TILE).float()
     y = (((t // (H // TILE)) * TILE)[..., None] + p // TILE).float()
-    w = [(slab[:, e, :, None] + slab[:, e + 1, :, None] * x)
-         + slab[:, e + 2, :, None] * y for e in (0, 3, 6)]
+    w = [row_at(slab[:, e, :, None], slab[:, e + 1, :, None],
+                slab[:, e + 2, :, None], x, y) for e in (0, 3, 6)]
     inside = valid[..., None] & (w[0] >= 0) & (w[1] >= 0) & (w[2] >= 0)
     on_edge = inside & ((w[0] == 0) | (w[1] == 0) | (w[2] == 0))
     print(f'{int(inside.sum())} covered (entry, pixel) pairs, '
           f'{int(on_edge.sum())} with an edge value exactly 0')
     assert int(on_edge.sum()) > 0
-    z = (slab[:, 9, :, None] + slab[:, 10, :, None] * x) \
-        + slab[:, 11, :, None] * y
+    z = row_at(slab[:, 9, :, None], slab[:, 10, :, None],
+               slab[:, 11, :, None], x, y)
     z = torch.where(inside, z, torch.inf)
     ties = 0
     for b in range(verts.shape[0]):

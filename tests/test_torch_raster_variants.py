@@ -82,10 +82,10 @@ def test_k2_plain_matches_jax_kernel_interpret():
     assert pf.shape == z.shape == (2, H, H)
     _assert_ties(pf, pf_j, verts, faces, H, 'K2 vs JAX K2 interpret')
     assert np.all(z[pf < 0] == 1e10) and np.all(z_j[pf_j < 0] == 1e10)
-    # the depth plane's terms reach 1e3-1e5 on sliver faces, so the two
-    # float32 evaluations of one plane differ by far more than an ulp of
-    # z ~ 10 (median 17 ulp here); each stays within 1 eps of the terms of
-    # the float64 plane, so they agree within 2
+    # the depth plane's terms reach 1e3-1e5 on sliver faces, so a float32
+    # evaluation of the plane lies far more than an ulp of z ~ 10 from the
+    # float64 one; each stays within 1 eps of its terms, and the port's,
+    # rounded in the same fused form as JAX's, equals it bit for bit
     assert np.array_equal(pf, pf_j)
     want, scale = _zplane(verts, faces, pf, H)
     cov = pf >= 0
@@ -93,7 +93,7 @@ def test_k2_plain_matches_jax_kernel_interpret():
         err = np.abs(zz[cov] - want) / (EPS * scale)
         print(f'K2 {name} zbuf vs float64: max {err.max():.3g} eps of terms')
         assert err.max() <= 1
-    assert np.all(np.abs(z - z_j)[cov] <= 2 * EPS * scale)
+    np.testing.assert_array_equal(z, z_j)
 
 
 def test_k2_and_k3_plain_match_k1_plain():
@@ -120,11 +120,9 @@ def test_k3_plain_matches_jax_kernel_interpret():
         8192, True))
     pf, u, v = (n(a) for a in rasterize_binned_uv16_plain(
         t(verts), t(faces), t(attrs), H))
-    _assert_ties(pf, pf_j, verts, faces, H, 'K3 vs JAX K3 interpret')
-    same = (pf == pf_j) & (pf >= 0)
-    # tolerance of tests/test_torch_raster.py (sliver faces)
-    np.testing.assert_allclose(u[same], u_j[same], rtol=1e-4, atol=2e-3)
-    np.testing.assert_allclose(v[same], v_j[same], rtol=1e-4, atol=2e-3)
+    # K1's fused rounding (ops/raster.py): every output is bit-equal
+    for got, want in ((pf, pf_j), (u, u_j), (v, v_j)):
+        np.testing.assert_array_equal(got, want)
     assert np.all(u[pf < 0] == 0) and np.all(v[pf < 0] == 0)
 
 
@@ -290,6 +288,64 @@ def test_interpolate_face_attributes_matches_jax():
     got[:, :3].square().sum().backward()
     for g in (tv.grad, ta.grad):
         assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+
+
+def _fused_interpolation(verts, faces, attrs, pix_to_face, H):
+    """interpolate_face_attributes' values with its edge functions and its
+    3-term attribute sum in the fused form (fma32), as XLA compiles the
+    JAX package's on the CPU."""
+    v, B = t(verts), verts.shape[0]
+    x = (v[..., 0] + 1) * (H / 2) - 0.5
+    y = (v[..., 1] + 1) * (H / 2) - 0.5
+    mask = (pix_to_face >= 0).reshape(B, H * H)
+    fidx = torch.where(mask, pix_to_face.reshape(B, H * H), 0).long()
+    rows = torch.arange(B)[:, None]
+    f = t(faces).long()
+    cx, cy = x[:, f][rows, fidx], y[:, f][rows, fidx]      # (B, HW, 3)
+    a = t(attrs)[rows, fidx]                                # (B, HW, 3, D)
+    py, px = (g.reshape(1, -1).float() for g in torch.meshgrid(
+        torch.arange(H), torch.arange(H), indexing='ij'))
+
+    def edge(i, j, qx, qy):
+        return fma32(cx[..., j] - cx[..., i], qy - cy[..., i],
+                     -((cy[..., j] - cy[..., i]) * (qx - cx[..., i])))
+
+    area = edge(0, 1, cx[..., 2], cy[..., 2])
+    inv = 1.0 / torch.where(area.abs() > 1e-8, area, torch.ones_like(area))
+    b = [(edge(i, j, px, py) * inv)[..., None]
+         for i, j in ((1, 2), (2, 0), (0, 1))]
+    vals = fma32(b[2], a[..., 2, :], fma32(b[1], a[..., 1, :],
+                                           b[0] * a[..., 0, :]))
+    vals = vals * mask[..., None]
+    return n(torch.cat([vals.reshape(B, H, H, -1).permute(0, 3, 1, 2),
+                        mask.reshape(B, 1, H, H).float()], 1))
+
+
+def test_interpolation_differs_from_jax_by_fma_contraction():
+    """The JAX package's interpolation runs inside the jitted model, where
+    XLA on the CPU contracts its edge functions' a*b - c*d and its 3-term
+    attribute sum into fused multiply-adds; the port rounds each product
+    apart. On the flagship's 4-view head the two differ in the last bits
+    of a few percent of the outputs (within 1e-5), and the fused form
+    equals JAX bit for bit: the gap is that rounding alone (ROADMAP.md
+    Queue 3 keeps its repair open)."""
+    import jax
+    verts, faces, attrs = _four_views(6)
+    attrs = np.repeat(attrs, len(verts), 0)
+    pf = rasterize_binned_uv(t(verts), t(faces), t(attrs), 256)[0]
+    want = np.asarray(jax.jit(jax_rasterizer.interpolate_face_attributes,
+                              static_argnums=4)(
+        jnp.asarray(verts), jnp.asarray(faces), jnp.asarray(attrs),
+        jnp.asarray(n(pf)), 256))
+    got = n(interpolate_face_attributes(t(verts), t(faces), t(attrs), pf,
+                                        256))
+    differ = int((got != want).sum())
+    print(f'interpolate_face_attributes vs JAX under jit: {differ} of '
+          f'{got.size} outputs differ, max-abs {np.abs(got - want).max():.3g}')
+    assert 0 < differ < 0.1 * got.size
+    assert np.abs(got - want).max() <= 1e-5
+    np.testing.assert_array_equal(
+        _fused_interpolation(verts, faces, attrs, pf, 256), want)
 
 
 @pytest.mark.usefixtures('one_thread')

@@ -60,3 +60,25 @@ def test_plain_matches_pallas_kernel_interpret(rng):
     got = n(triplane_sample(channels_last(t(planes)), t(coords), 2.0))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
+
+
+def test_plain_is_differentiable_like_jax(rng):
+    """On CPU tensors K4's wrapper runs F.grid_sample, which carries
+    gradients to the planes and the coordinates (the CUDA kernel has no
+    backward and raises under grad mode, tests/test_torch_cuda.py). They
+    match jax.grad of the JAX package's sampling within 1e-4."""
+    import jax
+    planes = rng.randn(1, 3, 32, 16, 16).astype(np.float32)
+    coords = _camera_coords(1, 64, 8, yaw=0.3) * 0.42
+    weight = rng.randn(1, 3, coords.shape[1], 32).astype(np.float32)
+
+    def loss(p, c):
+        return jnp.sum(jax_sample(p, c, 1.0) * weight)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(planes),
+                                         jnp.asarray(coords))
+    p, c = t(planes).requires_grad_(), t(coords).requires_grad_()
+    (sample_from_planes(p, c, 1.0) * t(weight)).sum().backward()
+    for got, ref in zip((p.grad, c.grad), want):
+        np.testing.assert_allclose(n(got), n(ref), rtol=0, atol=1e-4)
+    assert float(p.grad.abs().max()) > 0 and float(c.grad.abs().max()) > 0

@@ -91,8 +91,9 @@ def test_obj_io_matches_jax_package(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and a generator built from it, pull in
-    neither JAX nor any module of the JAX package."""
+    """Every module of the port (its CLIs included), and a generator built
+    from it, pull in neither JAX nor any module of the JAX package, nor
+    click or PIL, which the card machine lacks."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import next3d_tpu_torch\n"
@@ -110,8 +111,9 @@ def test_port_imports_no_jax():
         "channel_base=64, channel_max=4, plane_resolution=64, "
         "rendering_kwargs={'superresolution_module': "
         "'SuperresolutionHybrid2X'})\n"
+        "import next3d_tpu_torch.cli.main\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'next3d_tpu'))\n"
+        "('jax', 'jaxlib', 'next3d_tpu', 'click', 'PIL'))\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, '-c', code], check=True, timeout=120)
 

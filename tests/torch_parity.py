@@ -5,18 +5,13 @@ import numpy as np
 import pytest
 import torch
 
+from next3d_tpu_torch.utils.weights import state_dict_to_params
+
 
 def to_jax_tree(module):
     """A port module's state_dict as the JAX package's nested param tree of
     numpy arrays (dotted names -> one dict level per component)."""
-    tree = {}
-    for key, value in module.state_dict().items():
-        node = tree
-        *path, leaf = key.split('.')
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = value.detach().cpu().numpy().copy()
-    return tree
+    return state_dict_to_params(module.state_dict())
 
 
 def t(a):
