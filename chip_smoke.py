@@ -42,7 +42,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      mean-abs of phase 6's);
  11. with --profile only, for the flagship (after phase 8) and the texture
      variant (in phase 9): the forward's stages in ms at batch 1 and 4, and
-     the device-busy share of 3 forwards from torch.profiler;
+     the device-busy share of 3 forwards from torch.profiler; after phase
+     13, each training phase of one batch under torch.profiler, with its
+     device time and its heaviest ops;
  12. the inference CLIs (next3d_tpu_torch/cli/main.py run) on the card, from
      a format-1 snapshot of phase 6's weights with the 512^2 config's
      G_kwargs and the head written as .obj and _kpt2d.txt files in a
@@ -51,10 +53,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      gen-samples of seeds 0-1 with 256^3 shapes, reenact over 16 jittered
      driving frames and gen-videos of a 2x2 grid over 8 frames, each
      output checked and each command's K1 and K4 launches counted; K4 at
-     the shape path's chunk against its plain version; K4 raising under
-     grad mode. It logs gen-samples s/seed, the sigma grid's s and
+     the shape path's chunk against its plain version; K4 raising for
+     coordinates that require grad (its backward gives the planes'
+     gradient only). It logs gen-samples s/seed, the sigma grid's s and
      points/s, reenact f/s with and without the frame writes and
-     gen-videos f/s, each beside the card's name and power limit.
+     gen-videos f/s, each beside the card's name and power limit;
+ 13. training: after phase 4, K4's backward (csrc/triplane_sample.cu
+     triplane_sample_backward, the planes' gradient by float4 atomics) at
+     phase 4's shapes against its plain version (index_add_ of the 4 taps)
+     and torch.ops.aten.grid_sampler_2d_backward, within 1e-5 of the
+     largest gradient, each timed, and the coordinates guard; at the end,
+     ``python -m next3d_tpu_torch.cli.main train`` run in-process on the
+     card at the 512^2 FFHQ config (channel_base 32768, channel_max 512,
+     48+48 samples, 256^2 planes, 8XDC, neural rendering resolution 64),
+     batch 4, on a toy dataset in a temporary directory (8 of phase 6's
+     generator's images as PNGs, the head's .obj and landmarks per item,
+     FFHQ camera labels): 17 batches (all four phases run at batch 0, and
+     Dreg again at batch 16), a snapshot, and a resume from it for one more
+     tick. It fails unless every loss and gradient norm is finite, G, D
+     and G_ema moved from their initialization, K1, K4 and K4's backward
+     launched, the snapshot loads into TriPlaneGenerator with finite
+     images, and the resumed run continues cur_nimg. It logs ms a phase
+     (the first batch, and the second tick's mean, warm), the warm tick's
+     img/s and torch.cuda.max_memory_allocated beside the card's name and
+     power limit, and a {"train": ...} line.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -76,11 +98,16 @@ CUDA prep (prep_ms), its torch prep (torch_prep_ms), its face kernel
 (faces_ms) and its decode (decode_ms), each with its profiler device time
 (*_device_ms), and the wrapper's device time (wrapper_device_ms).
 
+K4's backward carries the same keys: its bound is the bytes of the output
+gradient and the points read once and the planes' gradient written once,
+its library call grid_sampler_2d_backward on the channels-first planes,
+and its launches those of phase 13's first training run.
+
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
-the in-repo synthetic head. The run uses no JAX. Its last two lines are a
-JSON object with one entry per kernel and the result line
-{"ok": true, "device": {...}}.
+the in-repo synthetic head. The run uses no JAX. It ends with a
+{"train": ...} line, the card line, a JSON object with one entry per
+kernel and the result line {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -578,6 +605,70 @@ def check_k4(device):
     return out
 
 
+def check_k4_backward(device):
+    """K4's backward at phase 4's shapes: against its plain version and
+    the library's grid_sampler_2d backward, within 1e-5 of the largest
+    gradient, each timed; and the coordinates guard."""
+    from next3d_tpu_torch.ops.triplane import (project_onto_planes,
+                                               triplane_sample,
+                                               triplane_sample_backward,
+                                               triplane_sample_backward_plain)
+    from next3d_tpu_torch.render.ray_sampler import sample_rays
+    from next3d_tpu_torch.render.renderer import sample_stratified
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    c = ffhq_camera(4, device)
+    ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
+                         c[:, 16:25].reshape(-1, 3, 3), 64)
+    depths = sample_stratified(None, ro, 2.25, 3.3, 48)
+    coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(4, -1, 3)
+    M = coords.shape[1]
+    grad_out = torch.randn(4, 3, M, 32, generator=g, device=device)
+    got = triplane_sample_backward(grad_out, coords, 1.0, 256, 256)
+    want = triplane_sample_backward_plain(grad_out, coords, 1.0, 256, 256)
+    feats = torch.zeros(12, 32, 256, 256, device=device)
+    grid = project_onto_planes(2.0 * coords)[:, None]       # box_warp 1
+    grad_cf = grad_out.reshape(12, M, 32).permute(0, 2, 1)[:, :, None]
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            grad_cf, feats, grid, 0, 0, False, [True, False])[0]
+
+    lib = library().reshape(4, 3, 32, 256, 256).permute(0, 1, 3, 4, 2)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    lib_err = float((got - lib).abs().max())
+    ms = time_ms(lambda: triplane_sample_backward(grad_out, coords, 1.0,
+                                                  256, 256))
+    plain_ms = time_ms(lambda: triplane_sample_backward_plain(
+        grad_out, coords, 1.0, 256, 256), reps=3)
+    library_ms = time_ms(library)
+    # bytes: grad_out and the points read once, the planes' gradient
+    # written once; operations: a multiply and an add a tap and channel
+    out = dict(max_abs_err=err, max_abs_err_library=lib_err,
+               largest_gradient=scale, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               **bound(nbytes(grad_out, coords, got), 12 * M * 32 * 2))
+    log(f'K4 backward, planes\' gradient (4, 3, 256, 256, 32), {M} points '
+        f'an image: max-abs {err:.3g} against its plain version, '
+        f'{lib_err:.3g} against grid_sampler_2d_backward, largest gradient '
+        f'{scale:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+        f'grid_sampler_2d_backward {library_ms:.3f} ms, bound '
+        f'{out["bound_ms"]:.4f} ms by {out["bound_by"]}')
+    if not (err <= 1e-5 * scale and lib_err <= 1e-5 * scale):
+        raise RuntimeError('K4\'s backward disagrees')
+    with torch.enable_grad():
+        try:
+            triplane_sample(torch.zeros(1, 3, 8, 8, 32, device=device),
+                            torch.zeros(1, 4, 3, device=device,
+                                        requires_grad=True), 1.0)
+        except RuntimeError as e:
+            log(f'K4 with coordinates that require grad: raises ({e})')
+        else:
+            raise RuntimeError('K4 took coordinates that require grad')
+    return out
+
+
 def check_k6(device):
     """Phase 5: the gather at the shape of the TPU kernel's measurement,
     in bf16 and f32; the entry for the kernels line is bf16's."""
@@ -896,19 +987,178 @@ def check_clis(G, g_kwargs, mesh, lms, device, card, kernels, ref, spread,
             f'a frame, one batched call): {stats["frames"] / stats["seconds"]:.3f} '
             f'f/s with the frame writes, on {card}')
 
-        # fault repaired: K4 has no backward, so it refuses grad mode
+        # K4 differentiates with respect to the planes only: coordinates
+        # that require grad raise
         with torch.enable_grad():
-            planes = torch.zeros(1, 3, 8, 8, 32, device=device,
-                                 requires_grad=True)
             try:
-                triplane_sample(planes, torch.zeros(1, 4, 3, device=device),
-                                1.0)
+                triplane_sample(torch.zeros(1, 3, 8, 8, 32, device=device),
+                                torch.zeros(1, 4, 3, device=device,
+                                            requires_grad=True), 1.0)
             except RuntimeError as e:
-                log(f'K4 under grad mode with planes that require grad: '
-                    f'raises ({e})')
+                log(f'K4 under grad mode with coordinates that require '
+                    f'grad: raises ({e})')
             else:
-                raise RuntimeError('K4 ran under grad mode')
+                raise RuntimeError('K4 took coordinates that require grad')
         return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def profile_phases(opts, dataset_path, device, phases=('Gmain', 'Greg',
+                                                        'Dmain', 'Dreg')):
+    """With --profile: each training phase of one batch of ``opts``'s
+    networks, after a warm-up batch, under torch.profiler; logs its device
+    time and the ops that take the most of it."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from next3d_tpu_torch.cli.common import float32_math
+    from next3d_tpu_torch.cli.train import build_training
+    from next3d_tpu_torch.data.dataset import (ImageFolderDataset,
+                                               make_data_iterator)
+    G, D, G_ema, loss, step, _, loop = build_training(opts, device)
+    data = ImageFolderDataset(dataset_path)
+    host = next(make_data_iterator(data, opts['batch_size'], prefetch=0))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    c, v = (torch.from_numpy(x).to(device) for x in
+            data.sample_conditioning(np.random.RandomState(SEED),
+                                     opts['batch_size']))
+    batch = {'gen_z': torch.randn(opts['batch_size'], 512, generator=gen,
+                                  device=device), 'gen_c': c, 'gen_v': v,
+             'real_c': torch.from_numpy(host['c']).to(device)}
+    real = torch.from_numpy(host['image']).to(device)
+    sched, nrr = loss.schedules(0)
+    calls = {'Gmain': lambda: step.gmain(batch, gen, sched, nrr),
+             'Greg': lambda: step.greg(batch, gen, 4.0, sched),
+             'Dmain': lambda: step.dmain(batch, real, gen, sched, nrr),
+             'Dreg': lambda: step.dreg(batch, real, 16.0, gen, sched, nrr)}
+    with float32_math():
+        for name in phases:
+            calls[name]()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                calls[name]()
+                torch.cuda.synchronize()
+            busy = sum(e.time_range.end - e.time_range.start
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+            log(f'train profile, {name}: device time {busy / 1e3:.1f} ms')
+            log(prof.key_averages().table(sort_by='self_cuda_time_total',
+                                          row_limit=10,
+                                          max_name_column_width=70))
+    del G, D, G_ema, loss, step
+
+
+def check_training(G, mesh, lms, device, card, kernels, profile=False):
+    """Phase 13: the train command on the card at the 512^2 FFHQ config,
+    batch 4, on a toy dataset in a temporary directory: 8 of ``G``'s
+    images written as PNGs, with the head's .obj and landmarks per item
+    and FFHQ camera labels. 17 batches (batch 0 runs Gmain, Greg, Dmain and
+    Dreg, batch 16 Dreg again, warm), a snapshot, then a resume from it for
+    one more tick. Returns the K1, K4 and K4 backward launches of the first
+    run and its summary."""
+    import numpy as np
+    from next3d_tpu_torch.cli import main as cli
+    from next3d_tpu_torch.cli.common import (camera_label, frame_uint8,
+                                             load_generator)
+    from next3d_tpu_torch.cli.train import build_training
+    from next3d_tpu_torch.utils.synthetic_head import save_dataset, save_head
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
+    try:
+        labels = np.concatenate([camera_label(0.1 * (i - 3.5), 0.02 * i)
+                                 for i in range(8)])
+        v = head_batch(mesh, lms, 8, device, jitter=0.003)
+        g = torch.Generator(device=device).manual_seed(SEED + 2)
+        z = torch.randn(8, 512, generator=g, device=device)
+        images = []
+        with torch.no_grad():
+            for i in (0, 4):
+                c = torch.from_numpy(labels[i:i + 4]).to(device)
+                out = G(z[i:i + 4], c, v[i:i + 4], truncation_psi=0.7,
+                        truncation_cutoff=14, noise_mode='const')
+                images += [frame_uint8(im) for im in out['image']]
+        data = save_dataset(os.path.join(tmp, 'data'), images,
+                            v.cpu().numpy(), labels, mesh)
+        obj, _ = save_head(os.path.join(tmp, 'head.obj'), mesh, lms)
+        run1, run2 = os.path.join(tmp, 'run1'), os.path.join(tmp, 'run2')
+
+        def argv(outdir, kimg, *extra):
+            return ['train', '--outdir', outdir, '--data', data, '--batch',
+                    '4', '--kimg', str(kimg), '--tick', '0.036', '--snap',
+                    '100', '--topology-path', obj, '--device', str(device),
+                    '--timing-every', '1', *extra]
+
+        parser = cli.build_parser()
+        opts = vars(parser.parse_args(argv(run1, 0.068)))
+        opts.pop('command')
+        opts.pop('device')
+        init = {name: {k: t.clone() for k, t in m.state_dict().items()}
+                for name, m in zip(('G', 'D', 'G_ema'),
+                                   build_training(opts, 'cpu')[:3])}
+
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.time()
+        result, counts = counted(lambda: cli.run(argv(run1, 0.068)), kernels)
+        seconds = time.time() - t0
+        peak_gb = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        launches = {k: counts[k] for k in ('K1', 'K4', 'K4b')}
+        log(f'train, 17 batches of 4 at 512^2 (FFHQ, 48+48 samples, nrr '
+            f'64): {seconds:.1f} s with its set-up; launches {counts}')
+        for r in result['ticks']:
+            bad = [k for k, x in r.items() if isinstance(x, float)
+                   and not math.isfinite(x)]
+            if bad:
+                raise RuntimeError(f'tick {r["tick"]}: not finite: {bad}')
+        phases = ('Gmain', 'Greg', 'Dmain', 'Dreg', 'G_ema')
+        first, warm = result['ticks'][0], result['ticks'][-1]
+        missing = [p for p in phases if f'Timing/{p}' not in first]
+        if missing or min(launches.values()) <= 0:
+            raise RuntimeError(f'phases {missing} did not run, or launches '
+                               f'{launches}')
+        summary = dict(
+            seconds=seconds, peak_device_mem_gb=peak_gb,
+            images_per_second=warm['images_per_second'],
+            phase_ms_first_batch={p: 1e3 * first[f'Timing/{p}']
+                                  for p in phases},
+            phase_ms_warm={p: 1e3 * warm[f'Timing/{p}'] for p in phases
+                           if f'Timing/{p}' in warm},
+            losses={k: warm[k] for k in warm if k.startswith('Loss/')
+                    or k.startswith('Grad/')})
+        log(f'train tick 1 (batches 9-16, warm): '
+            f'{summary["images_per_second"]:.3f} img/s; ms a phase '
+            f'{ {k: round(x, 2) for k, x in summary["phase_ms_warm"].items()} }'
+            f'; batch 0 (cold) '
+            f'{ {k: round(x, 2) for k, x in summary["phase_ms_first_batch"].items()} }'
+            f'; peak device memory {peak_gb:.2f} GiB (max_memory_allocated)'
+            f', on {card}')
+        log(f'train losses and gradient norms, tick 1: '
+            f'{ {k: round(x, 5) for k, x in summary["losses"].items()} }')
+
+        for name in ('G', 'D', 'G_ema'):
+            moved = max(float((t.detach().cpu() - init[name][k]).abs().max())
+                        for k, t in result[name].state_dict().items())
+            log(f'{name}: largest change of a parameter {moved:.3g}')
+            if not moved > 0:
+                raise RuntimeError(f'{name} did not move')
+        snap = os.path.join(run1, 'network-snapshot-000000.pkl')
+        loaded = load_generator(snap, obj, device)
+        with torch.no_grad():
+            out = loaded(z[:1], torch.from_numpy(labels[:1]).to(device),
+                         v[:1], noise_mode='const')
+        check_outputs(out, 1)
+        log('the snapshot loads into TriPlaneGenerator: finite images')
+        del result, loaded, init
+
+        resumed = cli.run(argv(run2, 0.072, '--resume', snap))
+        ticks = [(r['tick'], r['kimg']) for r in resumed['ticks']]
+        log(f'resumed from the snapshot: cur_nimg {resumed["cur_nimg"]}, '
+            f'ticks {ticks}')
+        if resumed['cur_nimg'] != 72 or ticks != [(2, 0.072)]:
+            raise RuntimeError('the resumed run did not continue cur_nimg')
+        del resumed
+        if profile:
+            profile_phases(opts, data, device)
+        return launches, summary
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -961,6 +1211,7 @@ def main():
                'K2': raster.rasterize_binned,
                'K3': raster.rasterize_binned_uv16,
                'K4': triplane.triplane_sample,
+               'K4b': triplane.triplane_sample_backward,
                'K5': raster_zbuffer.rasterize_zbuffer,
                'K6': dma_gather.gather_row_blocks}
     launches = {}
@@ -970,6 +1221,7 @@ def main():
         check_adversarial(device)
         check_zbuffer_cases(device)
         stats['K4'] = check_k4(device)
+        stats['K4b'] = check_k4_backward(device)
         stats['K6'], launches['K6'] = check_k6(device)
 
         g = torch.Generator(device=device).manual_seed(SEED)
@@ -1083,6 +1335,10 @@ def main():
         cli_launches = check_clis(G, G_KWARGS, mesh, head_lms, device, card,
                                   kernels, ref, spread, (z[4], c[4], v[4]))
 
+    train_launches, train = check_training(G, mesh, head_lms, device, card,
+                                           kernels, profile=opts.profile)
+    launches['K4b'] = train_launches['K4b']
+
     names = {
         'K1': ('rasterize_binned_uv', 'raster_binned_uv.cu',
                'next3d_tpu/ops/pallas_raster.py:489'),
@@ -1092,6 +1348,10 @@ def main():
                'next3d_tpu/ops/pallas_raster.py:744'),
         'K4': ('triplane_sample', 'triplane_sample.cu',
                'next3d_tpu/ops/pallas_triplane.py:177'),
+        # the TPU kernel is forward only; JAX trains through the XLA
+        # gather of render/renderer.py:256 sample_from_planes
+        'K4b': ('triplane_sample_backward', 'triplane_sample.cu',
+                'next3d_tpu/ops/pallas_triplane.py:177'),
         'K5': ('rasterize_zbuffer', 'raster_zbuffer.cu',
                'next3d_tpu/ops/pallas_raster.py:101'),
         'K6': ('gather_row_blocks', 'gather_row_blocks.cu',
@@ -1100,11 +1360,15 @@ def main():
                  replaces=replaces, launches=launches[k], **stats[k])
             for k, (fn, src, replaces) in names.items()]
     for entry in line:
-        # the launches of each CLI command of phase 12 (K1 and K4 only)
+        # the launches of each CLI command of phase 12 (K1 and K4 only) and
+        # of phase 13's training run
         k = entry['name'].split()[0]
         if k in ('K1', 'K4'):
             entry['cli_launches'] = {cmd: n[k] for cmd, n in
                                      cli_launches.items()}
+        if k in ('K1', 'K4', 'K4b'):
+            entry['train_launches'] = train_launches[k]
+    log(json.dumps({'train': train}))
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

@@ -114,19 +114,25 @@ def build_generator_from_kwargs(init_kwargs, topology_path,
 
 
 @contextlib.contextmanager
-def inference():
-    """float32 without TF32 (the JAX package runs float32 at HIGHEST
-    precision) and without autograd, for the duration of a CLI call."""
+def float32_math():
+    """float32 matmuls and convolutions without TF32 (the JAX package runs
+    float32 at HIGHEST precision), for the duration of a CLI call."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        with torch.no_grad():
-            yield
+        yield
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def inference():
+    """``float32_math`` without autograd, for an inference command."""
+    with float32_math(), torch.no_grad():
+        yield
 
 
 def camera_label(yaw, pitch, lookat=(0, 0, 0.2), radius=2.7, fov=18.837):

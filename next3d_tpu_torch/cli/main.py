@@ -1,9 +1,9 @@
-"""The port's inference CLI:
+"""The port's CLI:
 
-    python -m next3d_tpu_torch.cli.main {gen-samples,gen-videos,reenact} ...
+    python -m next3d_tpu_torch.cli.main {gen-samples,gen-videos,reenact,train} ...
 
 The options and their defaults are those of the JAX package's commands
-(next3d_tpu/cli/gen_samples.py, gen_videos.py, reenact.py), plus
+(next3d_tpu/cli/gen_samples.py, gen_videos.py, reenact.py, train.py), plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
 the kernels). The mesh options default to the reference's demo FLAME files;
 a mesh file that does not exist stops the command with a
@@ -40,7 +40,7 @@ def _common(p, seeds):
 def build_parser():
     parser = argparse.ArgumentParser(
         prog='python -m next3d_tpu_torch.cli.main',
-        description='Next3D inference on PyTorch: 3D-aware generative head '
+        description='Next3D on PyTorch: 3D-aware generative head '
                     'avatars.')
     sub = parser.add_subparsers(dest='command', required=True)
 
@@ -78,6 +78,10 @@ def build_parser():
     p.add_argument('--fps', type=int, default=30)
     p.add_argument('--topology-path', type=str, default=DEMO_OBJ)
 
+    from .train import add_options
+    add_options(sub.add_parser('train', help='GAN training on one device'),
+                _bool)
+
     for p in sub.choices.values():
         p.add_argument('--device', type=str, default='cuda',
                        help='torch device (default cuda; cpu runs the '
@@ -105,8 +109,11 @@ def run(argv=None):
         from .gen_videos import generate_video
         _require(opts, 'obj_path', 'lms_path')
         return generate_video(**kw)
-    from .reenact import reenact
     _require(opts, 'topology_path')
+    if opts.command == 'train':
+        from .train import train
+        return train(**kw)
+    from .reenact import reenact
     return reenact(**kw)
 
 

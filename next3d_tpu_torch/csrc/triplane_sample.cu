@@ -1,4 +1,5 @@
-// Tri-plane bilinear sampling for Hopper (sm_90a).
+// Tri-plane bilinear sampling for Hopper (sm_90a), and its backward with
+// respect to the planes.
 //
 // Replaces the TPU kernel next3d_tpu/ops/pallas_triplane.py
 // triplane_sample_tiles (entered through sample_from_planes_fused; kernel
@@ -94,6 +95,60 @@ triplane_sample_kernel(const float4* __restrict__ planes,  // (N*3, H, W, C/4)
   }
 }
 
+// The backward with respect to the planes: the transpose of the forward.
+// Every (point, plane, tap) adds its bilinear weight times the point's
+// output gradient into that tap's texel of grad_planes, which the caller
+// zero-fills, channels-last like the planes. The mapping is the forward's:
+// C / 4 lanes a point, each lane owns 4 channels, reads one float4 of
+// grad_out a plane and scatters each of the plane's 4 in-range taps with
+// one vector atomic. Consecutive points of a warp are consecutive depth
+// samples of a ray and hit the same texels, so those atomics contend; the
+// order in which they land varies, so the sums are not bit-reproducible.
+template <int kC>
+__global__ void __launch_bounds__(kThreads)
+triplane_sample_backward_kernel(const float4* __restrict__ grad_out,
+                                const float* __restrict__ coords,
+                                float4* __restrict__ grad_planes,
+                                int points, int M, int H, int W,
+                                float scale) {
+  constexpr int kLanes = kC / 4;
+  constexpr int kPointsPerBlock = kThreads / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int point = blockIdx.x * kPointsPerBlock + threadIdx.x / kLanes;
+  if (point >= points) return;
+  const int n = point / M;
+  const int m = point - n * M;
+
+  const float x = scale * __ldg(coords + 3 * point);
+  const float y = scale * __ldg(coords + 3 * point + 1);
+  const float z = scale * __ldg(coords + 3 * point + 2);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const float gx = (p == 2) ? z : x;
+    const float gy = (p == 1) ? z : y;
+    const float ix = fminf(fmaxf((gx + 1.f) * (0.5f * W) - 0.5f, -2.f),
+                           W + 1.f);
+    const float iy = fminf(fmaxf((gy + 1.f) * (0.5f * H) - 0.5f, -2.f),
+                           H + 1.f);
+    const float fx0 = floorf(ix), fy0 = floorf(iy);
+    const float wx1 = ix - fx0, wy1 = iy - fy0;
+    const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
+    const int x0 = (int)fx0, y0 = (int)fy0;
+    const float4 g = __ldcs(grad_out + ((n * 3 + p) * M + m) * kLanes + lane);
+    float4* plane = grad_planes + (n * 3 + p) * H * W * kLanes + lane;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int xi = x0 + (k & 1), yi = y0 + (k >> 1);
+      if (xi < 0 || xi >= W || yi < 0 || yi >= H) continue;
+      const float w = ((k >> 1) ? wy1 : wy0) * ((k & 1) ? wx1 : wx0);
+      float4* dst = plane + (yi * W + xi) * kLanes;
+      // one 16-byte atomic on global memory (compute capability 9.x; the
+      // float4 overload is in CUDA 12's sm_90_rt.h)
+      atomicAdd(dst, make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
+    }
+  }
+}
+
 }  // namespace
 
 // c must be 32 (the only instance); the wrapper checks it, and that every
@@ -111,6 +166,25 @@ extern "C" int triplane_sample(const void* planes, const void* coords,
   triplane_sample_kernel<kC><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float4*)planes, (const float*)coords, (float4*)out, points, m, h,
       w, scale);
+  return (int)cudaGetLastError();
+}
+
+// grad_planes must be zero-filled; the wrapper checks what it checks for
+// the forward.
+extern "C" int triplane_sample_backward(const void* grad_out,
+                                        const void* coords, void* grad_planes,
+                                        int n, int m, int h, int w, int c,
+                                        float scale, void* stream) {
+  constexpr int kC = 32;
+  if (c != kC) return (int)cudaErrorInvalidValue;
+  const int points = n * m;
+  if (points == 0) return 0;
+  constexpr int kPointsPerBlock = kThreads / (kC / 4);
+  const int blocks = (points + kPointsPerBlock - 1) / kPointsPerBlock;
+  triplane_sample_backward_kernel<kC>
+      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const float4*)grad_out, (const float*)coords,
+          (float4*)grad_planes, points, m, h, w, scale);
   return (int)cudaGetLastError();
 }
 

@@ -161,13 +161,16 @@ class TriPlaneGenerator(nn.Module):
                              f'rasterizer tile at {self.uv_resolution}px')
 
     # --------------------------------------------------------------- mapping
-    def mapping(self, z, c, truncation_psi=1, truncation_cutoff=None):
-        """Camera-only conditioning, optionally zeroed (reference :111-115)."""
+    def mapping(self, z, c, truncation_psi=1, truncation_cutoff=None,
+                return_w_mean=False):
+        """Camera-only conditioning, optionally zeroed (reference :111-115);
+        ``return_w_mean`` as in ``nn.stylegan2.MappingNetwork``."""
         if self.rendering_kwargs.get('c_gen_conditioning_zero', True):
             c = torch.zeros_like(c)
         c = c[:, :25] * self.rendering_kwargs.get('c_scale', 0)
         return self.backbone.mapping(z, c, truncation_psi=truncation_psi,
-                                     truncation_cutoff=truncation_cutoff)
+                                     truncation_cutoff=truncation_cutoff,
+                                     return_w_mean=return_w_mean)
 
     # ------------------------------------------------------------- rasterize
     def project_views(self, v, lms):
@@ -363,7 +366,8 @@ class TriPlaneGenerator(nn.Module):
         the planes of ``ws`` and the expression ``v``, then the decoder."""
         planes, _ = self.build_planes(ws, v, noise_mode=noise_mode,
                                       generator=generator)
-        return self.sample_with_planes(planes, coordinates, directions)
+        return self.sample_with_planes(planes, coordinates, directions,
+                                       generator)
 
     def sample(self, coordinates, directions, z, c, v, truncation_psi=1,
                truncation_cutoff=None, **kwargs):
@@ -375,12 +379,11 @@ class TriPlaneGenerator(nn.Module):
                            generator=None):
         """Decode sigma and rgb from prebuilt planes (N, 3, 32, H, W), as
         ``build_planes`` returns them: shape extraction builds them once and
-        decodes its chunks from them. ``generator`` is accepted for the JAX
-        signature; the renderer's training-time density noise, which would
-        draw from it, is not ported."""
+        decodes its chunks from them. ``generator`` draws the renderer's
+        ``density_noise``, where that option is set."""
         return self.renderer.run_model(channels_last(planes), self.decoder,
                                        coordinates, directions,
-                                       self.rendering_kwargs)
+                                       self.rendering_kwargs, generator)
 
     # ------------------------------------------------------------------ forward
     def forward(self, z, c, v, truncation_psi=1, truncation_cutoff=None,

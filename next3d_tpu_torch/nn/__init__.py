@@ -15,3 +15,11 @@ from .superresolution import (
     SuperresolutionHybrid2X,
     SuperresolutionHybrid8XDC,
 )
+from .discriminator import (
+    DiscriminatorBlock,
+    DiscriminatorEpilogue,
+    Discriminator,
+    DualDiscriminator,
+    filtered_resizing,
+    minibatch_std,
+)

@@ -103,14 +103,18 @@ class FullyConnected(nn.Module):
 
 class Conv2d(nn.Module):
     """Equalized-lr conv with optional FIR downsampling
-    (reference: networks_stylegan2.py:135-188)."""
+    (reference: networks_stylegan2.py:135-188). ``trainable=False`` marks a
+    layer that the discriminator's ``freeze_layers`` freezes: the training
+    step leaves it out of the optimizer."""
 
     def __init__(self, in_channels, out_channels, kernel_size, bias=True,
                  activation='linear', down=1, resample_filter=(1, 3, 3, 1),
-                 generator=None):
+                 conv_clamp=None, trainable=True, generator=None):
         super().__init__()
         self.activation = activation
         self.down = down
+        self.conv_clamp = conv_clamp
+        self.trainable = trainable
         self.register_buffer('resample_filter', torch.from_numpy(
             setup_filter(resample_filter)), persistent=False)
         self.padding = kernel_size // 2
@@ -124,11 +128,14 @@ class Conv2d(nn.Module):
         else:
             self.register_parameter('bias', None)
 
-    def forward(self, x):
+    def forward(self, x, gain=1):
         x = conv2d_resample(x, self.weight * self.weight_gain,
                             f=self.resample_filter, down=self.down,
                             padding=self.padding)
-        return bias_act(x, self.bias, act=self.activation, gain=self.act_gain)
+        clamp = self.conv_clamp * gain if self.conv_clamp is not None \
+            else None
+        return bias_act(x, self.bias, act=self.activation,
+                        gain=self.act_gain * gain, clamp=clamp)
 
 
 class MappingNetwork(nn.Module):
@@ -163,7 +170,11 @@ class MappingNetwork(nn.Module):
         if num_ws is not None and w_avg_beta is not None:
             self.register_buffer('w_avg', torch.zeros(w_dim))
 
-    def forward(self, z, c, truncation_psi=1, truncation_cutoff=None):
+    def forward(self, z, c, truncation_psi=1, truncation_cutoff=None,
+                return_w_mean=False):
+        """ws; with ``return_w_mean`` also the batch mean of w before the
+        broadcast, detached: the training step folds it into the ``w_avg``
+        buffer (JAX :215-241), which this forward never updates."""
         x = None
         if self.z_dim > 0:
             x = normalize_2nd_moment(z.float())
@@ -172,6 +183,7 @@ class MappingNetwork(nn.Module):
             x = torch.cat([x, y], dim=1) if x is not None else y
         for i in range(self.num_layers):
             x = getattr(self, f'fc{i}')(x)
+        w_mean = x.detach().mean(dim=0) if return_w_mean else None
         if self.num_ws is not None:
             x = x[:, None, :].repeat(1, self.num_ws, 1)
         if truncation_psi != 1:
@@ -182,7 +194,7 @@ class MappingNetwork(nn.Module):
                 head = w_avg + truncation_psi * (x[:, :truncation_cutoff]
                                                  - w_avg)
                 x = torch.cat([head, x[:, truncation_cutoff:]], dim=1)
-        return x
+        return (x, w_mean) if return_w_mean else x
 
 
 class SynthesisLayer(nn.Module):

@@ -5,13 +5,15 @@ torch_utils/ops/conv2d_resample.py:48-143), with the same padding
 arithmetic and ``flip_weight`` convention (True = correlation, as
 ``F.conv2d``; False = true convolution). Upsampling uses the reference's
 transposed-convolution route, which equals the JAX package's zero-inserted
-convolution.
+convolution. The convolutions are ``conv2d_gradfix``'s, whose higher-order
+derivatives stay convolutions.
 """
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 
+from .conv2d_gradfix import conv2d, conv_transpose2d
 from .upfirdn2d import _parse_padding, get_filter_size, upfirdn2d
 
 
@@ -25,12 +27,12 @@ def _conv2d(x, w, stride=1, padding=(0, 0, 0, 0), groups=1, transpose=False,
     px0, px1, py0, py1 = padding
     if transpose:
         assert px0 == px1 and py0 == py1
-        return F.conv_transpose2d(x, w, stride=stride, padding=(py0, px0),
-                                  groups=groups)
+        return conv_transpose2d(x, w, stride=stride, padding=(py0, px0),
+                                groups=groups)
     if px0 == px1 and py0 == py1 and px0 >= 0 and py0 >= 0:
-        return F.conv2d(x, w, stride=stride, padding=(py0, px0), groups=groups)
-    return F.conv2d(F.pad(x, [px0, px1, py0, py1]), w, stride=stride,
-                    groups=groups)
+        return conv2d(x, w, stride=stride, padding=(py0, px0), groups=groups)
+    return conv2d(F.pad(x, [px0, px1, py0, py1]), w, stride=stride,
+                  groups=groups)
 
 
 def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,

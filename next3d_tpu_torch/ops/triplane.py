@@ -1,4 +1,5 @@
-"""K4: tri-plane bilinear sampling.
+"""K4: tri-plane bilinear sampling, and its backward with respect to the
+planes.
 
 Counterpart of next3d_tpu/render/renderer.py sample_from_planes and of its
 TPU kernel next3d_tpu/ops/pallas_triplane.py triplane_sample_tiles. Points
@@ -10,11 +11,18 @@ The planes are passed channels-last, (N, 3, H, W, C) contiguous
 forward and each tap's channels are one 128 B line. ``triplane_sample``
 launches the kernel in ``csrc/triplane_sample.cu`` for CUDA tensors (C = 32
 only; any other C raises) and runs the plain ``F.grid_sample`` version for
-CPU tensors. The kernel has no backward yet (ROADMAP.md Queue 2 item 1): on
-a CUDA tensor, with grad mode on and planes or coordinates that require
-grad, ``triplane_sample`` raises rather than return a result that gradients
-would silently skip. Card callers run under ``torch.no_grad()``; the CPU
-path stays differentiable.
+CPU tensors, which stays differentiable in both arguments.
+
+On the card, when grad mode is on and the planes require grad, the forward
+runs inside an autograd function whose backward is the second kernel of
+that file (``triplane_sample_backward``): it scatters each tap's bilinear
+weight times the output gradient into zero-filled channels-last
+``grad_planes`` with one float4 atomic a tap, so its sums are not
+bit-reproducible. Its plain version, ``triplane_sample_backward_plain``, is
+an ``index_add_`` of the four taps. There is no gradient with respect to
+the coordinates: no sample point of the model depends on a parameter (the
+coarse depths come from the camera, the fine depths are detached, Greg's
+points are drawn), so on the card coordinates that require grad raise.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import cuda_build
 
@@ -93,17 +102,106 @@ def _sample_cuda(planes_cl, coordinates, box_warp):
     return out
 
 
+def _taps(coordinates, box_warp, H, W):
+    """Per plane image (N * 3) and point: the 4 taps' flat texel indices
+    into (N * 3 * H * W) and their bilinear weights, 0 outside the plane;
+    each (N * 3, M, 4)."""
+    N, M, _ = coordinates.shape
+    proj = project_onto_planes((2 / box_warp) * coordinates)  # (N*3, M, 2)
+    ix = ((proj[..., 0] + 1) * W - 1) / 2
+    iy = ((proj[..., 1] + 1) * H - 1) / 2
+    x0, y0 = ix.floor(), iy.floor()
+    wx1, wy1 = ix - x0, iy - y0
+    xs = torch.stack([x0, x0 + 1, x0, x0 + 1], -1).long()
+    ys = torch.stack([y0, y0, y0 + 1, y0 + 1], -1).long()
+    w = torch.stack([(1 - wy1) * (1 - wx1), (1 - wy1) * wx1,
+                     wy1 * (1 - wx1), wy1 * wx1], -1)
+    inside = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    image = torch.arange(N * 3, device=coordinates.device)[:, None, None]
+    index = (image * H + ys.clamp(0, H - 1)) * W + xs.clamp(0, W - 1)
+    return index, torch.where(inside, w, torch.zeros_like(w))
+
+
+def triplane_sample_backward_plain(grad_out, coordinates, box_warp, H, W):
+    """The plain backward on any device: grad_out (N, 3, M, C) -> the
+    planes' gradient (N, 3, H, W, C), each tap's weight times grad_out
+    added in by ``index_add_``."""
+    N, _, M, C = grad_out.shape
+    index, w = _taps(coordinates, box_warp, H, W)
+    g = grad_out.reshape(N * 3, M, 1, C) * w[..., None]
+    grad = torch.zeros(N * 3 * H * W, C, dtype=grad_out.dtype,
+                       device=grad_out.device)
+    grad.index_add_(0, index.reshape(-1), g.reshape(-1, C))
+    return grad.reshape(N, 3, H, W, C)
+
+
+def _backward_cuda(grad_out, coordinates, box_warp, H, W):
+    N, _, M, C = grad_out.shape
+    if C != C_KERNEL:
+        raise ValueError(f'the kernel takes {C_KERNEL} channels, not {C}')
+    for name, t in (('grad_out', grad_out), ('coordinates', coordinates)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != grad_out.device:
+            raise ValueError(f'{name} must be contiguous float32 on '
+                             f'{grad_out.device}')
+    if grad_out.data_ptr() % 16:
+        raise ValueError('grad_out must be 16-byte aligned')
+    if max(N * 3 * H * W * C, grad_out.numel()) >= 2 ** 31:
+        raise ValueError('the kernel indexes in 32 bits')
+    grad = torch.zeros((N, 3, H, W, C), dtype=torch.float32,
+                       device=grad_out.device)
+    cuda_build.launch('triplane_sample', 'triplane_sample_backward',
+                      grad_out.device, grad_out.data_ptr(),
+                      coordinates.data_ptr(), grad.data_ptr(), N, M, H, W, C,
+                      2.0 / box_warp)
+    triplane_sample_backward.launches += 1
+    return grad
+
+
+def triplane_sample_backward(grad_out, coordinates, box_warp, H, W):
+    """grad_out (N, 3, M, C), coordinates (N, M, 3) -> the planes' gradient
+    (N, 3, H, W, C): the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if grad_out.is_cuda:
+        return _backward_cuda(grad_out.contiguous(), coordinates, box_warp,
+                              H, W)
+    return triplane_sample_backward_plain(grad_out, coordinates, box_warp,
+                                          H, W)
+
+
+class _SampleWithBackward(torch.autograd.Function):
+    """K4 with K4's backward; the planes' gradient only."""
+
+    @staticmethod
+    def forward(ctx, planes_cl, coordinates, box_warp):
+        ctx.save_for_backward(coordinates)
+        ctx.box_warp = box_warp
+        ctx.size = planes_cl.shape[2:4]
+        return _sample_cuda(planes_cl, coordinates, box_warp)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        coordinates, = ctx.saved_tensors
+        return (triplane_sample_backward(grad_out, coordinates, ctx.box_warp,
+                                         *ctx.size), None, None)
+
+
 def triplane_sample(planes_cl, coordinates, box_warp):
     """planes_cl (N, 3, H, W, C), coordinates (N, M, 3) -> (N, 3, M, C)."""
-    if planes_cl.is_cuda:
-        if torch.is_grad_enabled() and (planes_cl.requires_grad
-                                        or coordinates.requires_grad):
-            raise RuntimeError(
-                'the K4 kernel has no backward yet (ROADMAP.md Queue 2 item '
-                '1, K4\'s backward): run it under torch.no_grad(), or on CPU '
-                'tensors, which take the differentiable F.grid_sample path')
-        return _sample_cuda(planes_cl, coordinates, box_warp)
-    return triplane_sample_plain(planes_cl, coordinates, box_warp)
+    if not planes_cl.is_cuda:
+        return triplane_sample_plain(planes_cl, coordinates, box_warp)
+    if torch.is_grad_enabled() and coordinates.requires_grad:
+        raise RuntimeError(
+            'K4 on the card differentiates with respect to the planes only; '
+            'no sample point of the model depends on a parameter (the fine '
+            'depths are detached), so coordinates that require grad are a '
+            'fault: detach them, or use CPU tensors, whose F.grid_sample '
+            'path is differentiable in both arguments')
+    if torch.is_grad_enabled() and planes_cl.requires_grad:
+        return _SampleWithBackward.apply(planes_cl, coordinates, box_warp)
+    return _sample_cuda(planes_cl, coordinates, box_warp)
 
 
 triplane_sample.launches = 0
+triplane_sample_backward.launches = 0

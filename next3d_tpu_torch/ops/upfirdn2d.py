@@ -5,7 +5,8 @@ Counterpart of next3d_tpu/ops/upfirdn2d.py with the same conventions
 torch route ``_upfirdn2d_ref`` this follows): ``flip_filter=False`` is a true
 convolution, a separable (1-D) filter runs as an x pass then a y pass with
 gain**(1/2) each, and torch's zero insertion puts the up-1 zeros after each
-sample. The filter pass is a depthwise ``F.conv2d``.
+sample. The filter pass is a depthwise convolution (``conv2d_gradfix``,
+which R1 differentiates twice).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .conv2d_gradfix import conv2d
 
 
 def _parse_scaling(scaling):
@@ -95,10 +98,10 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
         f = f.flip(list(range(f.ndim)))
     f = f[None, None].repeat([num_channels, 1] + [1] * f.ndim)
     if f.ndim == 4:
-        x = F.conv2d(x, f, groups=num_channels)
+        x = conv2d(x, f, groups=num_channels)
     else:
-        x = F.conv2d(x, f.unsqueeze(2), groups=num_channels)
-        x = F.conv2d(x, f.unsqueeze(3), groups=num_channels)
+        x = conv2d(x, f.unsqueeze(2), groups=num_channels)
+        x = conv2d(x, f.unsqueeze(3), groups=num_channels)
     return x[:, :, ::downy, ::downx]
 
 

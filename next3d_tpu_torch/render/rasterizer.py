@@ -25,7 +25,7 @@ import torch
 
 from ..ops.raster import (rasterize_binned, rasterize_binned_uv,
                           rasterize_binned_uv16)
-from ..ops.raster_zbuffer import rasterize_zbuffer
+from ..ops.raster_zbuffer import fma32, rasterize_zbuffer
 
 IMPLS = ('auto', 'pallas_binned', 'pallas_binned16', 'pallas')
 AREA_EPS = 1e-8  # a face of smaller |area| keeps 1/area = 1 in the interpolation
@@ -42,9 +42,34 @@ def resolve_impl(impl):
     return 'pallas_binned' if impl == 'auto' else impl
 
 
+class _FusedMultiplyAdd(torch.autograd.Function):
+    """``a * b + c`` rounded once (``fma32``), as XLA contracts the JAX
+    package's interpolation on the CPU, with the derivative of
+    ``a * b + c``, which the rounding does not change."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = a.shape, b.shape, c.shape
+        return fma32(a, b, c)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        shape_a, shape_b, shape_c = ctx.shapes
+        need_a, need_b, need_c = ctx.needs_input_grad
+        return ((grad * b).sum_to_size(shape_a) if need_a else None,
+                (grad * a).sum_to_size(shape_b) if need_b else None,
+                grad.sum_to_size(shape_c) if need_c else None)
+
+
+_fma = _FusedMultiplyAdd.apply
+
+
 def _edge(ax, ay, bx, by, px, py):
-    """Twice the signed area of triangle (a, b, p)."""
-    return (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+    """Twice the signed area of triangle (a, b, p), in the fused form
+    ``fma(bx - ax, py - ay, -((by - ay) * (px - ax)))``."""
+    return _fma(bx - ax, py - ay, -((by - ay) * (px - ax)))
 
 
 def interpolate_face_attributes(verts, faces, attributes, pix_to_face,
@@ -56,6 +81,8 @@ def interpolate_face_attributes(verts, faces, attributes, pix_to_face,
     Returns (B, D + 1, H, W): the interpolated attributes, 0 where no face
     covers the pixel, then the alpha mask. Gradients flow to verts (through
     the barycentrics recomputed at the pixel centres) and to attributes.
+    The edge functions and the attribute sum round in the fused form that
+    XLA compiles the JAX function into, so the two agree bit for bit.
     """
     B = verts.shape[0]
     H = W = image_size
@@ -90,9 +117,10 @@ def interpolate_face_attributes(verts, faces, attributes, pix_to_face,
                  gx[..., 2], gy[..., 2])
     inv = 1.0 / torch.where(area.abs() > AREA_EPS, area,
                             torch.ones_like(area))
-    bary = torch.stack([w0 * inv, w1 * inv, w2 * inv], dim=-1)  # (B, HW, 3)
-
-    vals = (bary[..., None] * face_attrs).sum(dim=-2)          # (B, HW, D)
+    b0, b1, b2 = ((w * inv)[..., None] for w in (w0, w1, w2))  # (B, HW, 1)
+    # the 3-term sum in the fused form fma(b2, a2, fma(b1, a1, b0 * a0))
+    a0, a1, a2 = face_attrs.unbind(-2)
+    vals = _fma(b2, a2, _fma(b1, a1, b0 * a0))                 # (B, HW, D)
     vals = vals * mask[..., None].to(vals.dtype)
     out = vals.reshape(B, H, W, D).permute(0, 3, 1, 2)
     alpha = mask.reshape(B, 1, H, W).to(out.dtype)

@@ -97,10 +97,13 @@ def _smooth_weights(weights):
 
 
 def sample_importance(generator, z_vals, weights, N_importance):
-    """Importance depths from smoothed coarse weights (reference :209-227)."""
+    """Importance depths from smoothed coarse weights (reference :209-227).
+    No gradient flows through the draw: the depths and weights are detached
+    as in the JAX package (renderer.py:211-212), so the fine-pass points
+    depend on no parameter."""
     N, R, S, _ = z_vals.shape
-    z = z_vals.reshape(N * R, S)
-    w = _smooth_weights(weights.reshape(N * R, -1))
+    z = z_vals.detach().reshape(N * R, S)
+    w = _smooth_weights(weights.detach().reshape(N * R, -1))
     z_mid = 0.5 * (z[:, :-1] + z[:, 1:])
     samples = sample_pdf(generator, z_mid, w[:, 1:-1], N_importance)
     return samples.reshape(N, R, N_importance, 1)
@@ -123,12 +126,21 @@ class ImportanceRenderer:
     """Two-pass coarse/fine renderer (reference: renderer.py:89-155)."""
 
     def run_model(self, planes_cl, decoder, sample_coordinates,
-                  sample_directions, options):
-        """planes_cl: channels-last planes (N, 3, H, W, C). The reference's
-        training-time ``density_noise`` is not ported."""
+                  sample_directions, options, generator=None):
+        """planes_cl: channels-last planes (N, 3, H, W, C). A positive
+        ``density_noise`` option adds Gaussian noise of that scale to sigma,
+        drawn from ``generator`` (JAX :264-267)."""
         sampled_features = triplane_sample(planes_cl, sample_coordinates,
                                            options['box_warp'])
-        return decoder(sampled_features, sample_directions)
+        out = decoder(sampled_features, sample_directions)
+        if options.get('density_noise', 0) > 0:
+            if generator is None:
+                raise ValueError('density_noise needs a generator')
+            sigma = out['sigma']
+            out['sigma'] = sigma + torch.randn(
+                sigma.shape, generator=generator, device=sigma.device,
+                dtype=sigma.dtype) * options['density_noise']
+        return out
 
     def __call__(self, planes, decoder, ray_origins, ray_directions,
                  rendering_options, generator=None):
@@ -159,7 +171,8 @@ class ImportanceRenderer:
                       * ray_directions[:, :, None]).reshape(N, -1, 3)
             dirs = ray_directions[:, :, None].expand(N, R, n, 3).reshape(
                 N, -1, 3)
-            out = self.run_model(planes_cl, decoder, coords, dirs, opts)
+            out = self.run_model(planes_cl, decoder, coords, dirs, opts,
+                                 generator)
             return (out['rgb'].reshape(N, R, n, -1),
                     out['sigma'].reshape(N, R, n, 1))
 

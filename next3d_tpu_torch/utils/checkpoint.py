@@ -10,6 +10,13 @@ state_dict_to_params(module.state_dict())``, and ``utils.weights
 load_jax_params`` loads one, so the two packages read each other's
 snapshots.
 
+A training snapshot of the port also carries both optimizers' states as
+``optimizer_state`` gives them (``kind`` 'torch.optim.Adam', each moment
+under its parameter's name), and the loop's generator and sampler state,
+so that a resumed run continues exactly. The JAX package's optax states
+have another structure: ``load_optimizer_state`` raises for them rather
+than restart the moments.
+
 Reading the original Next3D's .pkl checkpoints (the JAX package's
 ``pkl_import``) is not ported: ``load_any_generator`` raises
 ``NotImplementedError`` for any file that is not a format-1 snapshot.
@@ -81,3 +88,40 @@ def load_any_generator(path, key='G_ema'):
         f'{path} is not a format-1 snapshot; reading the reference .pkl '
         f'checkpoints (network {key!r}) is not ported yet (ROADMAP.md Queue '
         f'1 item 1: the reference-.pkl branch of load_any_generator)')
+
+
+ADAM = 'torch.optim.Adam'
+
+
+def optimizer_state(optimizer, named_params):
+    """A torch Adam's state as a tree of numpy arrays, keyed by the names of
+    ``named_params`` (name -> parameter, the optimizer's parameters)."""
+    names = {id(p): name for name, p in named_params.items()}
+    state = {}
+    for p, s in optimizer.state.items():
+        state[names[id(p)]] = {k: v.detach().cpu().numpy()
+                               for k, v in s.items()}
+    return {'kind': ADAM, 'state': state}
+
+
+def load_optimizer_state(optimizer, saved, named_params):
+    """Load ``optimizer_state``'s tree into ``optimizer`` (a torch Adam over
+    the parameters of ``named_params``). Any other structure, an optax
+    state of the JAX package among them, raises: carrying its moments into
+    torch Adam is not ported (ROADMAP.md Queue 1 item 5)."""
+    if not isinstance(saved, dict) or str(saved.get('kind')) != ADAM:
+        raise NotImplementedError(
+            'this optimizer state is not the port\'s torch Adam state (a '
+            'JAX snapshot holds optax states); loading it into torch Adam '
+            'is not ported (ROADMAP.md Queue 1 item 5): warm-start from its '
+            'parameters instead')
+    index = {id(p): i for i, p in enumerate(
+        p for group in optimizer.param_groups for p in group['params'])}
+    state = {}
+    for name, values in saved['state'].items():
+        p = named_params[name]
+        state[index[id(p)]] = {k: torch.from_numpy(np.array(v)) for k, v
+                               in values.items()}
+    optimizer.load_state_dict({
+        'state': state,
+        'param_groups': optimizer.state_dict()['param_groups']})

@@ -25,6 +25,7 @@ float written so that it reads back bit for bit.
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -150,3 +151,30 @@ def save_head(obj_path, mesh=None, lms=None):
     lms_path = os.path.splitext(obj_path)[0] + '_kpt2d.txt'
     np.savetxt(lms_path, np.asarray(lms, np.float32), fmt='%.9g')
     return obj_path, lms_path
+
+
+def save_dataset(root, images, verts, labels, mesh=None):
+    """Write a training dataset in the layout ``data/dataset.py`` reads:
+    ``images/img<i>.png`` (uint8 (N, H, W, 3) ``images``), the mesh of each
+    item with its vertices ``verts[i, :5023]`` as ``meshes/img<i>.obj``, its
+    landmarks ``verts[i, 5023:]`` as ``lms/img<i>.txt``, and the camera
+    ``labels`` (N, 25) in ``dataset.json``. ``mesh`` gives the faces and
+    UVs (default the synthetic head). Returns ``root``."""
+    from .png import write_png
+    if mesh is None:
+        mesh, _ = synthetic_head()
+    for sub in ('images', 'meshes', 'lms'):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    entries = []
+    for i, (img, v, c) in enumerate(zip(images, verts, labels)):
+        stem = f'img{i:08d}'
+        write_png(os.path.join(root, 'images', stem + '.png'), img)
+        _, kpt = save_head(os.path.join(root, 'meshes', stem + '.obj'),
+                           mesh._replace(verts=v[:len(mesh.verts)]),
+                           v[len(mesh.verts):])
+        os.replace(kpt, os.path.join(root, 'lms', stem + '.txt'))
+        entries.append([f'images/{stem}.png',
+                        np.asarray(c, np.float32).tolist()])
+    with open(os.path.join(root, 'dataset.json'), 'w') as f:
+        json.dump({'labels': entries}, f)
+    return root

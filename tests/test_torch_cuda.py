@@ -16,7 +16,9 @@ the binned kernels' CUDA prep gives the torch prep's segment starts exactly
 and, once each segment is sorted by face id, its slab bit for bit
 (csrc/raster_binned_prep.cu), and K5's CUDA prep its face rows and stripe
 starts on the kept faces (csrc/raster_zbuffer.cu); K4 within 1e-5 (its
-unnormalization rounds in another order than F.grid_sample); the slices
+unnormalization rounds in another order than F.grid_sample), and K4's
+backward within 1e-5 of the largest gradient of its plain version and of
+grid_sampler_2d_backward (its float4 atomics add in no fixed order); the slices
 within the fp32 parity gate of ROADMAP.md (max-abs 2e-3, mean-abs 1e-4),
 with TF32 off on the card.
 """
@@ -44,7 +46,10 @@ from next3d_tpu_torch.ops.raster_zbuffer import (rasterize_zbuffer,
                                                  rasterize_zbuffer_plain,
                                                  zbuffer_prep,
                                                  zbuffer_prep_cuda)
-from next3d_tpu_torch.ops.triplane import (channels_last, triplane_sample,
+from next3d_tpu_torch.ops.triplane import (channels_last, project_onto_planes,
+                                           triplane_sample,
+                                           triplane_sample_backward,
+                                           triplane_sample_backward_plain,
                                            triplane_sample_plain)
 from next3d_tpu_torch.render.camera_utils import (fov_to_intrinsics,
                                                   lookat_pose)
@@ -331,19 +336,62 @@ def test_k4_kernel_at_the_shape_chunk(device):
 
 
 def test_k4_kernel_raises_under_grad_mode(device):
-    """K4 has no backward: under grad mode it refuses planes or
-    coordinates that require grad, rather than return an output that
-    gradients skip; under no_grad it runs."""
+    """K4's backward gives the planes' gradient only: under grad mode,
+    coordinates that require grad raise, and planes that require grad get
+    an output that carries their gradient; under no_grad both run."""
     planes = channels_last(torch.randn(1, 3, 32, 16, 16, device=device))
     coords = torch.rand(1, 100, 3, device=device) - 0.5
+    with pytest.raises(RuntimeError, match='planes only'):
+        triplane_sample(planes, coords.clone().requires_grad_(), 1.0)
+    p = planes.clone().requires_grad_()
+    out = triplane_sample(p, coords, 1.0)
+    assert out.requires_grad
+    out.sum().backward()
+    assert p.grad is not None and p.grad.shape == planes.shape
     for p, c in ((planes.clone().requires_grad_(), coords),
                  (planes, coords.clone().requires_grad_())):
-        with pytest.raises(RuntimeError, match='no backward'):
-            triplane_sample(p, c, 1.0)
         with torch.no_grad():
             out = triplane_sample(p, c, 1.0)
         assert out.shape == (1, 3, 100, 32) and not out.requires_grad
     assert triplane_sample(planes, coords, 1.0).shape == (1, 3, 100, 32)
+
+
+@pytest.mark.parametrize('n,m,box_warp,size', [
+    (2, 32 * 32 * 48, 1.0, (256, 256)), (1, 4099, 1.0, (64, 48)),
+    (3, 1000, 2.0, (33, 70))])
+def test_k4_backward_kernel_matches_plain(device, n, m, box_warp, size):
+    """K4's backward against its plain version (index_add_ of the 4 taps)
+    and against the library's grid_sampler_2d backward, within 1e-5 of the
+    largest gradient: the render pass's points, a ragged count, points far
+    out of the box (no taps) and planes that are not square."""
+    H, W = size
+    g = torch.Generator(device=device).manual_seed(3)
+    if m == 32 * 32 * 48:
+        c = _camera(n, device, 0.3)
+        ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
+                             c[:, 16:25].reshape(-1, 3, 3), 32)
+        depths = sample_stratified(None, ro, 2.25, 3.3, 48)
+        coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(n, -1, 3)
+    else:
+        coords = (torch.rand(n, m, 3, generator=g, device=device) * 2 - 1) \
+            * box_warp * 0.6
+        coords[:, ::7] *= 1e4
+    grad_out = torch.randn(n, 3, m, 32, generator=g, device=device)
+    before = triplane_sample_backward.launches
+    got = triplane_sample_backward(grad_out, coords, box_warp, H, W)
+    want = triplane_sample_backward_plain(grad_out, coords, box_warp, H, W)
+    torch.cuda.synchronize()
+    assert triplane_sample_backward.launches == before + 1
+    assert got.shape == (n, 3, H, W, 32)
+    scale = want.abs().max().item()
+    assert scale > 0 and (got - want).abs().max().item() <= 1e-5 * scale
+    feats = torch.zeros(n * 3, 32, H, W, device=device)
+    grid = project_onto_planes((2 / box_warp) * coords)[:, None]
+    library = torch.ops.aten.grid_sampler_2d_backward(
+        grad_out.reshape(n * 3, m, 32).permute(0, 2, 1)[:, :, None],
+        feats, grid, 0, 0, False, [True, False])[0]
+    library = library.reshape(n, 3, 32, H, W).permute(0, 1, 3, 4, 2)
+    assert (got - library).abs().max().item() <= 1e-5 * scale
 
 
 def test_k4_kernel_rejects_other_channel_counts(device):

@@ -321,14 +321,12 @@ def _fused_interpolation(verts, faces, attrs, pix_to_face, H):
                         mask.reshape(B, 1, H, H).float()], 1))
 
 
-def test_interpolation_differs_from_jax_by_fma_contraction():
+def test_interpolation_matches_jax_under_jit():
     """The JAX package's interpolation runs inside the jitted model, where
     XLA on the CPU contracts its edge functions' a*b - c*d and its 3-term
-    attribute sum into fused multiply-adds; the port rounds each product
-    apart. On the flagship's 4-view head the two differ in the last bits
-    of a few percent of the outputs (within 1e-5), and the fused form
-    equals JAX bit for bit: the gap is that rounding alone (ROADMAP.md
-    Queue 3 keeps its repair open)."""
+    attribute sum into fused multiply-adds. The port rounds in that fused
+    form (``fma32``), so on the flagship's 4-view head the two are equal
+    bit for bit, and equal to the test's own fused form."""
     import jax
     verts, faces, attrs = _four_views(6)
     attrs = np.repeat(attrs, len(verts), 0)
@@ -341,11 +339,41 @@ def test_interpolation_differs_from_jax_by_fma_contraction():
                                         256))
     differ = int((got != want).sum())
     print(f'interpolate_face_attributes vs JAX under jit: {differ} of '
-          f'{got.size} outputs differ, max-abs {np.abs(got - want).max():.3g}')
-    assert 0 < differ < 0.1 * got.size
-    assert np.abs(got - want).max() <= 1e-5
+          f'{got.size} outputs differ')
+    assert differ == 0
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         _fused_interpolation(verts, faces, attrs, pf, 256), want)
+
+
+def test_interpolation_gradient_matches_jax():
+    """The fused rounding keeps the analytic derivative: the gradient of a
+    weighted sum of the outputs with respect to verts and to attributes
+    equals jax.grad of the JAX function within 1e-5 of the largest
+    gradient."""
+    import jax
+    verts, faces, attrs = _four_views(6)
+    verts, attrs = verts[:2], np.repeat(attrs, 2, 0)
+    pf = rasterize_binned_uv(t(verts), t(faces), t(attrs), 256)[0]
+    weight = np.random.RandomState(3).randn(2, attrs.shape[-1] + 1, 256,
+                                            256).astype(np.float32)
+
+    def jax_loss(v, a):
+        out = jax_rasterizer.interpolate_face_attributes(
+            v, jnp.asarray(faces), a, jnp.asarray(n(pf)), 256)
+        return jnp.sum(out * weight)
+
+    want = jax.jit(jax.grad(jax_loss, argnums=(0, 1)))(
+        jnp.asarray(verts), jnp.asarray(attrs))
+    v, a = t(verts).requires_grad_(), t(attrs).requires_grad_()
+    out = interpolate_face_attributes(v, t(faces), a, pf, 256)
+    got = torch.autograd.grad((out * t(weight)).sum(), (v, a))
+    for name, g, w in zip(('verts', 'attributes'), got, want):
+        g, w = n(g), np.asarray(w)
+        scale = np.abs(w).max()
+        err = np.abs(g - w).max()
+        print(f'd/d{name}: max-abs {err:.3g} of largest {scale:.3g}')
+        assert scale > 0 and err <= 1e-5 * scale, name
 
 
 @pytest.mark.usefixtures('one_thread')

@@ -91,15 +91,21 @@ def test_obj_io_matches_jax_package(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (its CLIs included), and a generator built
-    from it, pull in neither JAX nor any module of the JAX package, nor
-    click or PIL, which the card machine lacks."""
+    """Every module of the port (its CLIs and its training path included),
+    and a generator built from it, pull in neither JAX nor any module of
+    the JAX package, nor click or PIL, which the card machine lacks."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import next3d_tpu_torch\n"
-        "for m in pkgutil.walk_packages(next3d_tpu_torch.__path__, "
-        "'next3d_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "next3d_tpu_torch.__path__, 'next3d_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'next3d_tpu_torch.nn.discriminator', "
+        "'next3d_tpu_torch.train.loss', 'next3d_tpu_torch.train.train_step', "
+        "'next3d_tpu_torch.train.training_loop', "
+        "'next3d_tpu_torch.data.dataset', 'next3d_tpu_torch.cli.train'} "
+        "<= set(names), names\n"
         "from next3d_tpu_torch.models import (triplane_next3d,"
         " triplane_texture)\n"
         "from next3d_tpu_torch.utils import synthetic_head\n"
