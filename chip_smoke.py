@@ -2,7 +2,7 @@
 
 Usage, from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--parent DIR]
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -58,11 +58,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      gradient only). It logs gen-samples s/seed, the sigma grid's s and
      points/s, reenact f/s with and without the frame writes and
      gen-videos f/s, each beside the card's name and power limit;
- 13. training: after phase 4, K4's backward (csrc/triplane_sample.cu
-     triplane_sample_backward, the planes' gradient by float4 atomics) at
-     phase 4's shapes against its plain version (index_add_ of the 4 taps)
-     and torch.ops.aten.grid_sampler_2d_backward, within 1e-5 of the
-     largest gradient, each timed, and the coordinates guard; at the end,
+ 13. training: after phase 6, K4's backward (csrc/triplane_sample.cu
+     triplane_sample_backward, the planes' gradient, taps merged along runs
+     of points before its float4 atomics) on four sets of points of 4
+     images with planes (4, 3, 32, 256, 256): (a) phase 4's coarse points,
+     (b) the same rays with jittered depths, as training draws them, (c) the
+     fine pass's points of phase 6's forward at batch 4, (d) every point in
+     one texel (the worst pile-up), and (a)'s points in a shuffled order
+     (the same taps, each texel's hits spread over the launch: a probe of
+     the atomics' contention). Each set against its plain version (index_add_
+     of the 4 taps) and torch.ops.aten.grid_sampler_2d_backward, both adding
+     in float64 at the kernel's sample positions, within 1e-5 of the
+     largest gradient (the float32 plain
+     version's and library's own gaps to them are logged), timed (CUDA
+     events, and profiler device time of the wrapper and of the kernel
+     alone) beside the float32 plain version and library and, with
+     ``--parent DIR``, beside the K4 backward of another checkout, built and
+     bound by that checkout's own ops/cuda_build.py; with the in-range taps
+     and the atomics the kernel issues (ops/triplane.py merge_plain). Then
+     the coordinates guard. At the end,
      ``python -m next3d_tpu_torch.cli.main train`` run in-process on the
      card at the 512^2 FFHQ config (channel_base 32768, channel_max 512,
      48+48 samples, 256^2 planes, 8XDC, neural rendering resolution 64),
@@ -98,10 +112,16 @@ CUDA prep (prep_ms), its torch prep (torch_prep_ms), its face kernel
 (faces_ms) and its decode (decode_ms), each with its profiler device time
 (*_device_ms), and the wrapper's device time (wrapper_device_ms).
 
-K4's backward carries the same keys: its bound is the bytes of the output
-gradient and the points read once and the planes' gradient written once,
-its library call grid_sampler_2d_backward on the channels-first planes,
-and its launches those of phase 13's first training run.
+K4's backward carries the same keys, from point set (a): its bound is the
+bytes of the output gradient and the points read once and the planes'
+gradient written once, its library call grid_sampler_2d_backward on the
+channels-first planes, and its launches those of phase 13's first training
+run. It adds device_ms, kernel_device_ms, taps, atomics, parent_ms and
+parent_device_ms (null without --parent), and 'sets': each point set's
+numbers.
+
+``--parent DIR`` takes another checkout inside this one, such as ``git
+archive`` of the parent commit unpacked into ``build/parent`` (git-ignored).
 
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
@@ -605,58 +625,171 @@ def check_k4(device):
     return out
 
 
-def check_k4_backward(device):
-    """K4's backward at phase 4's shapes: against its plain version and
-    the library's grid_sampler_2d backward, within 1e-5 of the largest
-    gradient, each timed; and the coordinates guard."""
-    from next3d_tpu_torch.ops.triplane import (project_onto_planes,
+def parent_backward(root):
+    """The K4 backward of checkout ``root`` (such as the parent commit's
+    ``git archive``), built and bound by that checkout's own
+    ops/cuda_build.py (its nvcc flags, build directory and C signatures):
+    ``backward(grad_out, coords, box_warp, H, W)``."""
+    import importlib.util
+    path = os.path.join(root, 'next3d_tpu_torch', 'ops', 'cuda_build.py')
+    spec = importlib.util.spec_from_file_location('parent_cuda_build', path)
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    build.load('triplane_sample')
+
+    def backward(grad_out, coords, box_warp, H, W):
+        N, _, M, C = grad_out.shape
+        grad = torch.zeros(N, 3, H, W, C, device=grad_out.device)
+        build.launch('triplane_sample', 'triplane_sample_backward',
+                     grad_out.device, grad_out.data_ptr(), coords.data_ptr(),
+                     grad.data_ptr(), N, M, H, W, C, 2.0 / box_warp)
+        return grad
+    return backward
+
+
+def fine_points(forward):
+    """The fine pass's points of one ``forward()``: the coordinates of the
+    renderer's second triplane_sample call."""
+    from next3d_tpu_torch.render import renderer
+    seen = []
+    sample = renderer.triplane_sample
+
+    def recording(planes_cl, coordinates, box_warp):
+        seen.append(coordinates)
+        return sample(planes_cl, coordinates, box_warp)
+
+    renderer.triplane_sample = recording
+    try:
+        forward()
+    finally:
+        renderer.triplane_sample = sample
+    return seen[1].contiguous()
+
+
+def check_k4_backward(device, fine, parent=None):
+    """K4's backward on four sets of points of 4 images, planes' gradient
+    (4, 3, 256, 256, 32): (a) phase 4's coarse points (midpoint depths),
+    (b) the same rays with jittered depths, as training draws them, (c)
+    ``fine``, the fine pass of the flagship's forward at batch 4, (d) every
+    point in one texel, and (a) in a shuffled order, to probe the atomics'
+    contention. Each set against its plain version and the library's
+    grid_sampler_2d backward, both adding in float64 at the kernel's
+    float32 sample positions, within 1e-5 of the largest gradient, timed
+    (CUDA events; profiler device time of the wrapper and of the kernel
+    alone) beside the float32 plain version and library (their gaps to the
+    float64 result logged too) and the parent's kernel when ``parent`` is
+    given, with the in-range taps and the atomics the kernel issues
+    (merge_plain). Then the coordinates guard. Returns set (a)'s
+    numbers, with every set's under 'sets'."""
+    from next3d_tpu_torch.ops.triplane import (kernel_positions,
+                                               merge_plain,
+                                               project_onto_planes,
                                                triplane_sample,
                                                triplane_sample_backward,
                                                triplane_sample_backward_plain)
     from next3d_tpu_torch.render.ray_sampler import sample_rays
     from next3d_tpu_torch.render.renderer import sample_stratified
-    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    g = torch.Generator(device=device).manual_seed(SEED)
     c = ffhq_camera(4, device)
     ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
                          c[:, 16:25].reshape(-1, 3, 3), 64)
-    depths = sample_stratified(None, ro, 2.25, 3.3, 48)
-    coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(4, -1, 3)
-    M = coords.shape[1]
-    grad_out = torch.randn(4, 3, M, 32, generator=g, device=device)
-    got = triplane_sample_backward(grad_out, coords, 1.0, 256, 256)
-    want = triplane_sample_backward_plain(grad_out, coords, 1.0, 256, 256)
-    feats = torch.zeros(12, 32, 256, 256, device=device)
-    grid = project_onto_planes(2.0 * coords)[:, None]       # box_warp 1
-    grad_cf = grad_out.reshape(12, M, 32).permute(0, 2, 1)[:, :, None]
+    points = {}
+    for name, gen in (('coarse', None), ('jittered', g)):
+        depths = sample_stratified(gen, ro, 2.25, 3.3, 48)
+        points[name] = (ro[:, :, None] + depths * rd[:, :, None]).reshape(
+            4, -1, 3)
+    points['fine'] = fine
+    M = points['coarse'].shape[1]
+    # every point of an image in one texel of each plane
+    points['one_cell'] = 0.1 + 1e-3 * torch.rand(4, M, 3, generator=g,
+                                                 device=device)
+    # a probe of the atomics' contention: set (a)'s points in a shuffled
+    # order (the same texels and taps, each texel's hits spread over the
+    # launch, no cell repeated by consecutive points)
+    perm = torch.randperm(M, generator=g, device=device)
+    points['coarse_shuffled'] = points['coarse'][:, perm].contiguous()
+    sets = {}
+    for name, coords in points.items():
+        M = coords.shape[1]
+        grad_out = torch.randn(4, 3, M, 32, generator=g, device=device)
+        args = (grad_out, coords, 1.0, 256, 256)
+        got = triplane_sample_backward(*args)
+        want = triplane_sample_backward_plain(grad_out.double(), *args[1:])
+        want32 = triplane_sample_backward_plain(*args)
+        grid = project_onto_planes(2.0 * coords)[:, None]       # box_warp 1
+        # the kernel's positions as a float64 grid, which grid_sampler_2d
+        # unnormalizes back to them: the library adding in float64 at the
+        # kernel's taps
+        ix, iy = kernel_positions(coords, 1.0, 256, 256)
+        grid64 = torch.stack([(2 * ix.double() + 1) / 256 - 1,
+                              (2 * iy.double() + 1) / 256 - 1],
+                             -1).reshape(12, 1, M, 2)
+        grad_cf = grad_out.reshape(12, M, 32).permute(0, 2, 1)[:, :, None]
+        feats = {dtype: torch.zeros(12, 32, 256, 256, dtype=dtype,
+                                    device=device)
+                 for dtype in (torch.float32, torch.float64)}
 
-    def library():
-        return torch.ops.aten.grid_sampler_2d_backward(
-            grad_cf, feats, grid, 0, 0, False, [True, False])[0]
+        def library(grid=grid):
+            return torch.ops.aten.grid_sampler_2d_backward(
+                grad_cf.to(grid.dtype), feats[grid.dtype], grid, 0, 0, False,
+                [True, False])[0].reshape(4, 3, 32, 256, 256).permute(
+                    0, 1, 3, 4, 2)
 
-    lib = library().reshape(4, 3, 32, 256, 256).permute(0, 1, 3, 4, 2)
-    torch.cuda.synchronize()
-    scale = float(want.abs().max())
-    err = float((got - want).abs().max())
-    lib_err = float((got - lib).abs().max())
-    ms = time_ms(lambda: triplane_sample_backward(grad_out, coords, 1.0,
-                                                  256, 256))
-    plain_ms = time_ms(lambda: triplane_sample_backward_plain(
-        grad_out, coords, 1.0, 256, 256), reps=3)
-    library_ms = time_ms(library)
-    # bytes: grad_out and the points read once, the planes' gradient
-    # written once; operations: a multiply and an add a tap and channel
-    out = dict(max_abs_err=err, max_abs_err_library=lib_err,
-               largest_gradient=scale, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms,
-               **bound(nbytes(grad_out, coords, got), 12 * M * 32 * 2))
-    log(f'K4 backward, planes\' gradient (4, 3, 256, 256, 32), {M} points '
-        f'an image: max-abs {err:.3g} against its plain version, '
-        f'{lib_err:.3g} against grid_sampler_2d_backward, largest gradient '
-        f'{scale:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-        f'grid_sampler_2d_backward {library_ms:.3f} ms, bound '
-        f'{out["bound_ms"]:.4f} ms by {out["bound_by"]}')
-    if not (err <= 1e-5 * scale and lib_err <= 1e-5 * scale):
-        raise RuntimeError('K4\'s backward disagrees')
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        lib_err = float((got - library(grid64)).abs().max())
+        plain32_err = float((want32 - want).abs().max())
+        lib32_err = float((library() - want).abs().max())
+        _, _, atomics, taps = merge_plain(*args)
+        # bytes: grad_out and the points read once, the planes' gradient
+        # written once; operations: a multiply and an add a channel of
+        # each in-range tap
+        out = dict(
+            max_abs_err=err, max_abs_err_library=lib_err,
+            max_abs_err_plain_f32=plain32_err,
+            max_abs_err_library_f32=lib32_err, largest_gradient=scale,
+            ms=time_ms(lambda: triplane_sample_backward(*args)),
+            device_ms=device_ms(lambda: triplane_sample_backward(*args)),
+            kernel_device_ms=device_ms(
+                lambda: triplane_sample_backward(*args),
+                kernel='triplane_sample_backward_kernel'),
+            plain_ms=time_ms(lambda: triplane_sample_backward_plain(*args),
+                             reps=3),
+            library_ms=time_ms(library), taps=taps, atomics=atomics,
+            parent_ms=None, parent_device_ms=None,
+            **bound(nbytes(grad_out, coords, got), taps * 32 * 2))
+        if parent is not None:
+            # a check that the other checkout's kernel computes the same
+            # function before it is timed; its error is logged, not held to
+            # 1e-5 (an unmerged kernel's float32 sums stray further at the
+            # one-texel pile-up)
+            perr = float((parent(*args) - want).abs().max())
+            if not perr <= 1e-3 * scale:
+                raise RuntimeError(f'the parent\'s K4 backward disagrees on '
+                                   f'{name}: {perr:.3g}')
+            out.update(max_abs_err_parent=perr,
+                       parent_ms=time_ms(lambda: parent(*args)),
+                       parent_device_ms=device_ms(lambda: parent(*args)))
+        sets[name] = out
+        log(f'K4 backward, {name} points, planes\' gradient (4, 3, 256, '
+            f'256, 32), {M} points an image: max-abs {err:.3g} against its '
+            f'plain version in float64, {lib_err:.3g} against '
+            f'grid_sampler_2d_backward in float64 at its positions, largest '
+            f'gradient {scale:.3g} (the float32 plain version strays by '
+            f'{plain32_err:.3g}, the float32 library by {lib32_err:.3g}); '
+            f'kernel {out["ms"]:.4f} ms (device {out["device_ms"]:.4f}, '
+            f'kernel alone {out["kernel_device_ms"]:.4f}), parent '
+            + ('not built' if parent is None else
+               f'{out["parent_ms"]:.4f} (device '
+               f'{out["parent_device_ms"]:.4f}; max-abs '
+               f'{out["max_abs_err_parent"]:.3g})')
+            + f', plain {out["plain_ms"]:.3f} ms, grid_sampler_2d_backward '
+            f'{out["library_ms"]:.3f} ms, bound {out["bound_ms"]:.4f} ms by '
+            f'{out["bound_by"]}; {taps} in-range taps, {atomics} atomics')
+        if not (err <= 1e-5 * scale and lib_err <= 1e-5 * scale):
+            raise RuntimeError(f'K4\'s backward disagrees on {name}')
+        del grad_out, got, want, want32, grid, grid64, grad_cf, feats
     with torch.enable_grad():
         try:
             triplane_sample(torch.zeros(1, 3, 8, 8, 32, device=device),
@@ -666,7 +799,7 @@ def check_k4_backward(device):
             log(f'K4 with coordinates that require grad: raises ({e})')
         else:
             raise RuntimeError('K4 took coordinates that require grad')
-    return out
+    return dict(sets['coarse'], sets=sets)
 
 
 def check_k6(device):
@@ -1167,6 +1300,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
                         help='add phase 11, the per-stage profile')
+    parser.add_argument('--parent', metavar='DIR',
+                        help='another checkout (the parent commit) whose K4 '
+                        'backward phase 13 times beside this one')
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1191,6 +1327,7 @@ def main():
     for so in cuda_build.build_all(LIBRARIES):
         log(f'built {so.name}; nvcc says:\n'
             + so.with_suffix('.log').read_text().strip())
+    parent = parent_backward(opts.parent) if opts.parent else None
     log(f'kernel build {time.time() - t0:.1f} s')
 
     mesh, lms = load_head()
@@ -1217,13 +1354,6 @@ def main():
     launches = {}
 
     with torch.no_grad():
-        stats = check_rasterizers(G, head_batch(mesh, lms, 4, device))
-        check_adversarial(device)
-        check_zbuffer_cases(device)
-        stats['K4'] = check_k4(device)
-        stats['K4b'] = check_k4_backward(device)
-        stats['K6'], launches['K6'] = check_k6(device)
-
         g = torch.Generator(device=device).manual_seed(SEED)
         z = {n: torch.randn(n, 512, generator=g, device=device)
              for n in (1, 4)}
@@ -1238,6 +1368,11 @@ def main():
             return forward
 
         forward = forward_of(G)
+        stats = check_rasterizers(G, head_batch(mesh, lms, 4, device))
+        check_adversarial(device)
+        check_zbuffer_cases(device)
+        stats['K4'] = check_k4(device)
+        stats['K6'], launches['K6'] = check_k6(device)
         outs, counts = counted(lambda: {n: forward(n) for n in (1, 4)},
                                kernels)
         for n, out in outs.items():
@@ -1247,6 +1382,8 @@ def main():
         launches.update(K1=counts['K1'], K4=counts['K4'])
         if min(launches.values()) <= 0:
             raise RuntimeError('a kernel of the main path never launched')
+        stats['K4b'] = check_k4_backward(
+            device, fine_points(lambda: forward(4)), parent)
 
         ws = G.mapping(z[1], c[1], truncation_psi=0.7, truncation_cutoff=14)
         textures, static = G.build_identity(ws, noise_mode='const')

@@ -98,12 +98,55 @@ triplane_sample_kernel(const float4* __restrict__ planes,  // (N*3, H, W, C/4)
 // The backward with respect to the planes: the transpose of the forward.
 // Every (point, plane, tap) adds its bilinear weight times the point's
 // output gradient into that tap's texel of grad_planes, which the caller
-// zero-fills, channels-last like the planes. The mapping is the forward's:
-// C / 4 lanes a point, each lane owns 4 channels, reads one float4 of
-// grad_out a plane and scatters each of the plane's 4 in-range taps with
-// one vector atomic. Consecutive points of a warp are consecutive depth
-// samples of a ray and hit the same texels, so those atomics contend; the
-// order in which they land varies, so the sums are not bit-reproducible.
+// zero-fills, channels-last like the planes.
+//
+// What bounds it on the H100: bytes, if each texel's gradient were written
+// once (302 MB of grad_out and 9.4 MB of points read, 100.7 MB of
+// grad_planes written at a 512^2 pass). A scatter instead issues one float4
+// atomic a lane per (point, plane, in-range tap): 8.8 M line atomics at
+// that pass, and the L2's rate for them sets the time, not the bytes and
+// not their contention on shared texels (the same points in a shuffled
+// order take as long on the H100; PERF.md, section 6).
+//
+// Design: merge taps before the atomics. A block works on one plane
+// (blockIdx.y). A group of C / 4 lanes (a lane owns 4 channels) walks a run
+// of kRun consecutive points and keeps the current cell's 4 taps' partial
+// sums in registers. It flushes them, one float4 atomic a lane per in-range
+// tap, when the cell or the image changes and at the end of the run, so
+// the result is exact whatever the geometry; only the count of atomics
+// depends on it. grad_out is loaded kAhead points at a time, before their
+// adds. Along a ray, plane 0's (x, y) cell repeats for a sample or two;
+// planes 1 and 2 change cell at every sample, so this removes 16% of the
+// atomics at the coarse pass. ops/triplane.py merge_plain models the merge
+// (the same cells and runs): its contributions added up give the plain
+// backward, and it counts the atomics. The atomics land in no fixed order,
+// so the sums are not bit-reproducible.
+
+// A point's cell on one plane and its bilinear weights. The roundings are
+// written out (nvcc contracts none of them) and are merge_plain's, so that
+// the kernel and its model see the same cells.
+struct Cell {
+  int x0, y0;
+  float wx1, wy1;
+};
+
+__device__ __forceinline__ float unnormalize(float g, int size) {
+  // align_corners=False; far-out points are clamped to a range whose taps
+  // are all outside the plane, which keeps the float -> int conversion
+  // defined
+  return fminf(fmaxf(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), 0.5f * size),
+                               0.5f), -2.f), size + 1.f);
+}
+
+__device__ __forceinline__ Cell cell_of(float gx, float gy, int H, int W) {
+  const float ix = unnormalize(gx, W), iy = unnormalize(gy, H);
+  const float fx0 = floorf(ix), fy0 = floorf(iy);
+  return Cell{(int)fx0, (int)fy0, ix - fx0, iy - fy0};
+}
+
+// ops/triplane.py RUN names the same run length
+constexpr int kRun = 32;
+
 template <int kC>
 __global__ void __launch_bounds__(kThreads)
 triplane_sample_backward_kernel(const float4* __restrict__ grad_out,
@@ -112,44 +155,76 @@ triplane_sample_backward_kernel(const float4* __restrict__ grad_out,
                                 int points, int M, int H, int W,
                                 float scale) {
   constexpr int kLanes = kC / 4;
-  constexpr int kPointsPerBlock = kThreads / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const int point = blockIdx.x * kPointsPerBlock + threadIdx.x / kLanes;
-  if (point >= points) return;
-  const int n = point / M;
-  const int m = point - n * M;
+  constexpr int kGroups = kThreads / kLanes;
+  constexpr int kAhead = 8;
+  static_assert(kRun % kAhead == 0, "run length");
 
-  const float x = scale * __ldg(coords + 3 * point);
-  const float y = scale * __ldg(coords + 3 * point + 1);
-  const float z = scale * __ldg(coords + 3 * point + 2);
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const float gx = (p == 2) ? z : x;
-    const float gy = (p == 1) ? z : y;
-    const float ix = fminf(fmaxf((gx + 1.f) * (0.5f * W) - 0.5f, -2.f),
-                           W + 1.f);
-    const float iy = fminf(fmaxf((gy + 1.f) * (0.5f * H) - 0.5f, -2.f),
-                           H + 1.f);
-    const float fx0 = floorf(ix), fy0 = floorf(iy);
-    const float wx1 = ix - fx0, wy1 = iy - fy0;
-    const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
-    const int x0 = (int)fx0, y0 = (int)fy0;
-    const float4 g = __ldcs(grad_out + ((n * 3 + p) * M + m) * kLanes + lane);
-    float4* plane = grad_planes + (n * 3 + p) * H * W * kLanes + lane;
+  const int p = blockIdx.y;
+  const int group = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int first = (blockIdx.x * kGroups + group) * kRun;
+  const int last = min(first + kRun, points);
+  // plane 0 samples (x, y), plane 1 (x, z), plane 2 (z, y); texel (n, y, x)
+  // of plane p is line ((n * 3 + p) * H + y) * W + x of grad_planes
+  const int ax = (p == 2) ? 2 : 0, ay = (p == 1) ? 2 : 1;
+
+  // the run: the open cell (cn < 0: none) and its 4 taps' partial sums
+  int cn = -1, cx = 0, cy = 0;
+  float4 acc[4];
+  auto flush = [&]() {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int xi = x0 + (k & 1), yi = y0 + (k >> 1);
+      const int xi = cx + (k & 1), yi = cy + (k >> 1);
       if (xi < 0 || xi >= W || yi < 0 || yi >= H) continue;
-      const float w = ((k >> 1) ? wy1 : wy0) * ((k & 1) ? wx1 : wx0);
-      float4* dst = plane + (yi * W + xi) * kLanes;
       // one 16-byte atomic on global memory (compute capability 9.x; the
       // float4 overload is in CUDA 12's sm_90_rt.h)
-      atomicAdd(dst, make_float4(w * g.x, w * g.y, w * g.z, w * g.w));
+      atomicAdd(grad_planes + (((cn * 3 + p) * H + yi) * W + xi) * kLanes
+                + lane, acc[k]);
+    }
+  };
+
+  int n = first / M, m = first - n * M;
+  for (int base = first; base < last; base += kAhead) {
+    float4 g[kAhead];
+    float gx[kAhead], gy[kAhead];
+    int gn[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int i = base + u;
+      gn[u] = n;
+      if (i < last) {
+        g[u] = __ldcs(grad_out + ((n * 3 + p) * M + m) * kLanes + lane);
+        gx[u] = __ldg(coords + 3 * i + ax);
+        gy[u] = __ldg(coords + 3 * i + ay);
+      }
+      if (++m == M) m = 0, ++n;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (base + u >= last) break;
+      const Cell c = cell_of(__fmul_rn(scale, gx[u]), __fmul_rn(scale, gy[u]),
+                             H, W);
+      if (gn[u] != cn || c.x0 != cx || c.y0 != cy) {
+        if (cn >= 0) flush();
+        cn = gn[u], cx = c.x0, cy = c.y0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const float wx0 = 1.f - c.wx1, wy0 = 1.f - c.wy1;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float w = ((k >> 1) ? c.wy1 : wy0) * ((k & 1) ? c.wx1 : wx0);
+        acc[k].x += w * g[u].x;
+        acc[k].y += w * g[u].y;
+        acc[k].z += w * g[u].z;
+        acc[k].w += w * g[u].w;
+      }
     }
   }
+  if (cn >= 0) flush();
 }
 
 }  // namespace
+
 
 // c must be 32 (the only instance); the wrapper checks it, and that every
 // index of planes, coordinates and output fits in 32 bits, and that planes
@@ -179,10 +254,10 @@ extern "C" int triplane_sample_backward(const void* grad_out,
   if (c != kC) return (int)cudaErrorInvalidValue;
   const int points = n * m;
   if (points == 0) return 0;
-  constexpr int kPointsPerBlock = kThreads / (kC / 4);
-  const int blocks = (points + kPointsPerBlock - 1) / kPointsPerBlock;
+  constexpr int kPointsPerBlock = kThreads / (kC / 4) * kRun;
+  const dim3 grid((points + kPointsPerBlock - 1) / kPointsPerBlock, 3);
   triplane_sample_backward_kernel<kC>
-      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
           (const float4*)grad_out, (const float*)coords,
           (float4*)grad_planes, points, m, h, w, scale);
   return (int)cudaGetLastError();

@@ -15,14 +15,18 @@ CPU tensors, which stays differentiable in both arguments.
 
 On the card, when grad mode is on and the planes require grad, the forward
 runs inside an autograd function whose backward is the second kernel of
-that file (``triplane_sample_backward``): it scatters each tap's bilinear
+that file (``triplane_sample_backward``). It adds each tap's bilinear
 weight times the output gradient into zero-filled channels-last
-``grad_planes`` with one float4 atomic a tap, so its sums are not
-bit-reproducible. Its plain version, ``triplane_sample_backward_plain``, is
-an ``index_add_`` of the four taps. There is no gradient with respect to
-the coordinates: no sample point of the model depends on a parameter (the
-coarse depths come from the camera, the fine depths are detached, Greg's
-points are drawn), so on the card coordinates that require grad raise.
+``grad_planes``, and merges taps before its atomics: a group of lanes
+walks a run of ``RUN`` consecutive points and flushes a cell's taps once
+the cell changes. ``merge_plain`` models the merge (the tests and
+``chip_smoke.py`` use it; no forward or backward path calls it). The
+atomics land in no fixed order, so the sums are not bit-reproducible. The
+plain version, ``triplane_sample_backward_plain``, is an ``index_add_`` of
+the four taps. There is no gradient with respect to the coordinates: no
+sample point of the model depends on a parameter (the coarse depths come
+from the camera, the fine depths are detached, Greg's points are drawn), so
+on the card coordinates that require grad raise.
 """
 
 from __future__ import annotations
@@ -133,6 +137,77 @@ def triplane_sample_backward_plain(grad_out, coordinates, box_warp, H, W):
                        device=grad_out.device)
     grad.index_add_(0, index.reshape(-1), g.reshape(-1, C))
     return grad.reshape(N, 3, H, W, C)
+
+
+# the backward kernel's run length (csrc/triplane_sample.cu kRun)
+RUN = 32
+
+
+def kernel_positions(coordinates, box_warp, H, W):
+    """Each point's unnormalized position (ix, iy) on each plane, (N, 3, M)
+    float32, rounded as the backward kernel rounds them (each operation
+    once, far-out points clamped to [-2, size + 1])."""
+    scale = torch.tensor(2.0 / box_warp, dtype=torch.float32)
+    c = coordinates.float() * scale.to(coordinates.device)
+    gx = torch.stack([c[..., 0], c[..., 0], c[..., 2]], 1)
+    gy = torch.stack([c[..., 1], c[..., 2], c[..., 1]], 1)
+    return (((gx + 1) * (0.5 * W) - 0.5).clamp(-2, W + 1),
+            ((gy + 1) * (0.5 * H) - 0.5).clamp(-2, H + 1))
+
+
+def _cells(coordinates, box_warp, H, W):
+    """Each point's cell on each plane, (N, 3, M) int64 x0 and y0, and its
+    float32 weights wx1, wy1, as the backward kernel computes them."""
+    ix, iy = kernel_positions(coordinates, box_warp, H, W)
+    x0, y0 = ix.floor(), iy.floor()
+    return x0.long(), y0.long(), ix - x0, iy - y0
+
+
+def merge_plain(grad_out, coordinates, box_warp, H, W, run=RUN):
+    """The backward kernel's merge in plain torch, on any device.
+
+    grad_out (N, 3, M, C), coordinates (N, M, 3). Per plane, the points are
+    cut into runs of ``run`` (counted over all N * M points), each run into
+    segments of points that share a cell and an image; a segment's flush
+    adds each in-range tap's summed weight times grad_out. Returns
+    ``(index, grad, atomics, taps)``: each flush's texel in the flat
+    (N * 3 * H * W) planes and its (C,) gradient, the count of atomics to
+    grad_planes (a group's float4 atomic a lane on one texel counts once;
+    this is the number of flushes), and the count of in-range taps (the
+    atomics without the merge). ``index_add_`` of the flushes gives the
+    planes' gradient."""
+    N, _, M, C = grad_out.shape
+    device = grad_out.device
+    x0, y0, wx1, wy1 = _cells(coordinates, box_warp, H, W)
+    point = torch.arange(N * M, device=device)
+    image = point // M
+    first = point % run == 0
+    index, grad = [], []
+    taps = 0
+    for p in range(3):
+        x, y = x0[:, p].reshape(-1), y0[:, p].reshape(-1)
+        key = (image * (H + 4) + y + 2) * (W + 4) + x + 2
+        new = first.clone()
+        new[1:] |= key[1:] != key[:-1]
+        segment = torch.cumsum(new, 0) - 1
+        xs = torch.stack([x, x + 1, x, x + 1], 1)
+        ys = torch.stack([y, y, y + 1, y + 1], 1)
+        inside = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+        taps += int(inside.sum())
+        line = ((image[:, None] * 3 + p) * H + ys) * W + xs
+        ax, ay = wx1[:, p].reshape(-1, 1), wy1[:, p].reshape(-1, 1)
+        wx = torch.cat([1 - ax, ax, 1 - ax, ax], 1)
+        wy = torch.cat([1 - ay, 1 - ay, ay, ay], 1)
+        # one flush a (segment, in-range tap)
+        target = segment[:, None] * 4 + torch.arange(4, device=device)
+        g = grad_out[:, p].reshape(N * M, 1, C) * (wy * wx)[..., None]
+        ids, where = torch.unique(target[inside], return_inverse=True)
+        index.append(torch.zeros_like(ids).scatter_(0, where, line[inside]))
+        grad.append(torch.zeros(len(ids), C, dtype=grad_out.dtype,
+                                device=device).index_add_(0, where,
+                                                          g[inside]))
+    index = torch.cat(index)
+    return index, torch.cat(grad), len(index), taps
 
 
 def _backward_cuda(grad_out, coordinates, box_warp, H, W):

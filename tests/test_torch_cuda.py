@@ -18,9 +18,9 @@ and, once each segment is sorted by face id, its slab bit for bit
 starts on the kept faces (csrc/raster_zbuffer.cu); K4 within 1e-5 (its
 unnormalization rounds in another order than F.grid_sample), and K4's
 backward within 1e-5 of the largest gradient of its plain version and of
-grid_sampler_2d_backward (its float4 atomics add in no fixed order); the slices
-within the fp32 parity gate of ROADMAP.md (max-abs 2e-3, mean-abs 1e-4),
-with TF32 off on the card.
+grid_sampler_2d_backward, both adding in float64 (its atomics add in no
+fixed order); the slices within the fp32 parity gate of ROADMAP.md (max-abs
+2e-3, mean-abs 1e-4), with TF32 off on the card.
 """
 
 import math
@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from next3d_tpu_torch.models.osg_decoder import OSGDecoder
 from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
 from next3d_tpu_torch.models.triplane_texture import TriPlaneTextureGenerator
 from next3d_tpu_torch.ops.dma_gather import (gather_row_blocks,
@@ -46,7 +47,7 @@ from next3d_tpu_torch.ops.raster_zbuffer import (rasterize_zbuffer,
                                                  rasterize_zbuffer_plain,
                                                  zbuffer_prep,
                                                  zbuffer_prep_cuda)
-from next3d_tpu_torch.ops.triplane import (channels_last, project_onto_planes,
+from next3d_tpu_torch.ops.triplane import (channels_last, kernel_positions,
                                            triplane_sample,
                                            triplane_sample_backward,
                                            triplane_sample_backward_plain,
@@ -54,7 +55,8 @@ from next3d_tpu_torch.ops.triplane import (channels_last, project_onto_planes,
 from next3d_tpu_torch.render.camera_utils import (fov_to_intrinsics,
                                                   lookat_pose)
 from next3d_tpu_torch.render.ray_sampler import sample_rays
-from next3d_tpu_torch.render.renderer import sample_stratified
+from next3d_tpu_torch.render.renderer import (ImportanceRenderer,
+                                              sample_stratified)
 from next3d_tpu_torch.render.shape_utils import create_samples
 from next3d_tpu_torch.utils.raster_cases import (adversarial_mesh,
                                                  four_views, sliver_sweep,
@@ -356,42 +358,109 @@ def test_k4_kernel_raises_under_grad_mode(device):
     assert triplane_sample(planes, coords, 1.0).shape == (1, 3, 100, 32)
 
 
-@pytest.mark.parametrize('n,m,box_warp,size', [
-    (2, 32 * 32 * 48, 1.0, (256, 256)), (1, 4099, 1.0, (64, 48)),
-    (3, 1000, 2.0, (33, 70))])
-def test_k4_backward_kernel_matches_plain(device, n, m, box_warp, size):
-    """K4's backward against its plain version (index_add_ of the 4 taps)
-    and against the library's grid_sampler_2d backward, within 1e-5 of the
-    largest gradient: the render pass's points, a ragged count, points far
-    out of the box (no taps) and planes that are not square."""
-    H, W = size
+def _k4_backward_points(case, device):
+    """(coordinates, box_warp, (H, W)) of a K4-backward case, seeded."""
     g = torch.Generator(device=device).manual_seed(3)
-    if m == 32 * 32 * 48:
-        c = _camera(n, device, 0.3)
+    if case in ('render', 'jittered', 'fine_like'):
+        c = _camera(2, device, 0.3)
         ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
                              c[:, 16:25].reshape(-1, 3, 3), 32)
-        depths = sample_stratified(None, ro, 2.25, 3.3, 48)
-        coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(n, -1, 3)
-    else:
-        coords = (torch.rand(n, m, 3, generator=g, device=device) * 2 - 1) \
-            * box_warp * 0.6
-        coords[:, ::7] *= 1e4
+        depths = sample_stratified(g if case == 'jittered' else None, ro,
+                                   2.25, 3.3, 48)
+        if case == 'fine_like':
+            # importance draws: most samples within 0.02 of a surface depth
+            surface = 2.6 + 0.2 * torch.rand(2, ro.shape[1], 1, 1,
+                                             generator=g, device=device)
+            depths = (surface + 0.02 * torch.randn(
+                depths.shape, generator=g, device=device)).sort(2).values
+        coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(2, -1, 3)
+        return coords, 1.0, (256, 256)
+    if case == 'one_cell':
+        # every point of 2 images inside one texel: the worst pile-up,
+        # 73,728 points on each texel of each image's planes
+        coords = 0.1 + 1e-3 * torch.rand(2, 73728, 3, generator=g,
+                                         device=device)
+        return coords, 1.0, (256, 256)
+    n, m, box_warp, size = dict(ragged=(1, 4099, 1.0, (64, 48)),
+                                nonsquare=(3, 1000, 2.0, (33, 70)))[case]
+    coords = (torch.rand(n, m, 3, generator=g, device=device) * 2 - 1) \
+        * box_warp * 0.6
+    coords[:, ::7] *= 1e4
+    return coords, box_warp, size
+
+
+@pytest.mark.parametrize('case', ['render', 'ragged', 'nonsquare',
+                                  'one_cell', 'jittered', 'fine_like'])
+def test_k4_backward_kernel_matches_plain(device, case):
+    """K4's backward against its plain version (index_add_ of the 4 taps)
+    and against the library's grid_sampler_2d backward, both adding in
+    float64 at the kernel's float32 sample positions, within 1e-5 of the
+    largest gradient: the render pass's points, a ragged count that the run
+    length does not divide, points far out of the box (no taps), planes
+    that are not square, every point in one texel, jittered depths and
+    depths clustered as the fine pass draws them. The references add in
+    float64 so that the bound holds the kernel's own sums alone: at the
+    one-texel pile-up a float32 reference's sums round by about as much as
+    the kernel's."""
+    coords, box_warp, (H, W) = _k4_backward_points(case, device)
+    n, m, _ = coords.shape
+    g = torch.Generator(device=device).manual_seed(4)
     grad_out = torch.randn(n, 3, m, 32, generator=g, device=device)
     before = triplane_sample_backward.launches
     got = triplane_sample_backward(grad_out, coords, box_warp, H, W)
-    want = triplane_sample_backward_plain(grad_out, coords, box_warp, H, W)
+    want = triplane_sample_backward_plain(grad_out.double(), coords,
+                                          box_warp, H, W)
     torch.cuda.synchronize()
     assert triplane_sample_backward.launches == before + 1
     assert got.shape == (n, 3, H, W, 32)
     scale = want.abs().max().item()
     assert scale > 0 and (got - want).abs().max().item() <= 1e-5 * scale
-    feats = torch.zeros(n * 3, 32, H, W, device=device)
-    grid = project_onto_planes((2 / box_warp) * coords)[:, None]
+    # the kernel's positions as a float64 grid, which grid_sampler_2d
+    # unnormalizes back to them
+    ix, iy = kernel_positions(coords, box_warp, H, W)
+    grid = torch.stack([(2 * ix.double() + 1) / W - 1,
+                        (2 * iy.double() + 1) / H - 1], -1)
     library = torch.ops.aten.grid_sampler_2d_backward(
-        grad_out.reshape(n * 3, m, 32).permute(0, 2, 1)[:, :, None],
-        feats, grid, 0, 0, False, [True, False])[0]
+        grad_out.double().reshape(n * 3, m, 32).permute(0, 2, 1)[:, :, None],
+        torch.zeros(n * 3, 32, H, W, dtype=torch.float64, device=device),
+        grid.reshape(n * 3, 1, m, 2), 0, 0, False, [True, False])[0]
     library = library.reshape(n, 3, 32, H, W).permute(0, 1, 3, 4, 2)
     assert (got - library).abs().max().item() <= 1e-5 * scale
+
+
+def test_k4_backward_through_both_render_passes(device):
+    """Training's use of K4's backward: the planes' gradient of a small
+    renderer's rgb (coarse and fine pass, midpoint depths and linspace
+    importance draws), by torch.autograd.grad through _SampleWithBackward on
+    the card, against the same on the CPU, where F.grid_sample's autograd
+    gives it; within 1e-4 of the largest gradient (the decoder's float32
+    sums and the importance draw round differently on the two devices)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opts = dict(ray_start=2.25, ray_end=3.3, box_warp=1.0,
+                depth_resolution=24, depth_resolution_importance=24,
+                disparity_space_sampling=False, clamp_mode='softplus')
+    decoder = OSGDecoder(32, {'decoder_lr_mul': 1, 'decoder_output_dim': 32},
+                         generator=torch.Generator().manual_seed(5))
+    rs = np.random.RandomState(6)
+    planes = torch.from_numpy(rs.randn(1, 3, 32, 64, 64).astype(np.float32))
+    c = _camera(1, 'cpu', 0.2)
+    ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
+                         c[:, 16:25].reshape(-1, 3, 3), 24)
+    weight = torch.from_numpy(rs.randn(1, ro.shape[1], 32).astype(
+        np.float32))
+    grads = []
+    for dev in ('cpu', device):
+        p = planes.to(dev).requires_grad_()
+        before = triplane_sample_backward.launches
+        rgb, _, _ = ImportanceRenderer()(p, decoder.to(dev), ro.to(dev),
+                                         rd.to(dev), opts)
+        grad, = torch.autograd.grad((rgb * weight.to(dev)).sum(), p)
+        grads.append(grad.cpu())
+        assert triplane_sample_backward.launches == before + (
+            0 if dev == 'cpu' else 2)
+    want, got = grads
+    scale = want.abs().max().item()
+    assert scale > 0 and (got - want).abs().max().item() <= 1e-4 * scale
 
 
 def test_k4_kernel_rejects_other_channel_counts(device):
