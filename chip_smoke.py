@@ -90,7 +90,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      images, and the resumed run continues cur_nimg. It logs ms a phase
      (the first batch, and the second tick's mean, warm), the warm tick's
      img/s and torch.cuda.max_memory_allocated beside the card's name and
-     power limit, and a {"train": ...} line.
+     power limit, and a {"train": ...} line;
+ 14. bf16 serving (force_fp32=False, the JAX package's serving fast path):
+     K4's bf16-plane instance (csrc/triplane_sample.cu, planes stored in
+     bf16, float32 sums and output) at phase 4's shapes against its plain
+     version within 1e-5, timed beside the float32 instance, the plain
+     version and the bf16 layout pass alone; then both generators with
+     force_fp32=False and the weights of phases 6 and 9: the 512^2 forward
+     at batch 1 and 4 (the flagship also at 8, bench.py's default batch),
+     each finite, with K4's bf16 instance launched and its float32 one not,
+     against the fp32 forward on the same inputs by the bounds of
+     tests/test_bf16_parity.py (image max-abs 0.05 and PSNR 45 dB,
+     image_raw 0.02 and 55 dB; whether they hold is logged), and stage by
+     stage at batch 1 (the texture, the static plane, the rasterized front
+     and the mouth and blend StyleUNets, the planes, image_raw and image,
+     and render + SR of the fp32 planes alone), failing where a stage's
+     RMS gap is more than 5% of its scale (a fault, not rounding); img/s of
+     the fp32 and the bf16 forward at each batch; the flagship's
+     identity-cached reenact path (synthesis_from_identity) over 16
+     jittered frames in fp32 and bf16, f/s, the bf16 frame 0 against the
+     bf16 synthesis within 1e-4 under deterministic cuDNN. It ends with a
+     {"bf16": ...} line.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -120,14 +140,22 @@ run. It adds device_ms, kernel_device_ms, taps, atomics, parent_ms and
 parent_device_ms (null without --parent), and 'sets': each point set's
 numbers.
 
+K4's bf16 instance (K4bf16) carries the same keys, from phase 14: its
+bound is the bf16 planes, the points and the float32 output, its launches
+those of phase 14's bf16 forwards, library_ms is null (no one PyTorch call
+samples bf16 planes at float32 points: F.grid_sample takes one dtype for
+both, 'library' says so), and it adds float32_instance_ms, layout_ms (the
+bf16 layout pass) and layout_float32_ms.
+
 ``--parent DIR`` takes another checkout inside this one, such as ``git
 archive`` of the parent commit unpacked into ``build/parent`` (git-ignored).
 
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
 the in-repo synthetic head. The run uses no JAX. It ends with a
-{"train": ...} line, the card line, a JSON object with one entry per
-kernel and the result line {"ok": true, "device": {...}}.
+{"train": ...} line, a {"bf16": ...} line, the card line, a JSON object
+with one entry per kernel and the result line {"ok": true, "device":
+{...}}.
 """
 
 import argparse
@@ -170,6 +198,16 @@ OPS_BINNED_PAIR = 12
 # differences hoisted (2 sub, a mul and an fma of 2 operations each), 3
 # barycentric scalings and the depth (a mul and 2 fmas)
 OPS_ZBUFFER_TEST = 23
+
+# bf16 serving: the bounds of tests/test_bf16_parity.py on a bf16 forward
+# against the fp32 forward (max-abs, PSNR over a [-1, 1] range)
+BF16_BOUNDS = {'image': (0.05, 45.0), 'image_raw': (0.02, 55.0)}
+# a stage of the bf16 forward whose RMS gap to its fp32 stage is more than
+# this share of the fp32 stage's largest magnitude is a fault (a wrong
+# layout or weight moves it by tens of percent), not bf16's rounding (an
+# RMS gap of 0.1-0.5% and a max-abs gap of 1-3% at each stage of the small
+# CPU configuration, tests/test_torch_bf16.py)
+BF16_STAGE_FAULT = 0.05
 
 
 def log(*args):
@@ -866,10 +904,11 @@ def median_ms(fn, reps=5):
     return statistics.median(times)
 
 
-def throughput(name, forward, card):
-    """Median img/s of ``forward(n)`` at batch 1 and 4: 2 warm-ups, then 5
-    forwards, each ended by a synchronize."""
-    for n in (1, 4):
+def throughput(name, forward, card, batches=(1, 4)):
+    """Median img/s of ``forward(n)`` at each batch: 2 warm-ups, then 5
+    forwards, each ended by a synchronize. Returns {batch: img/s}."""
+    rates = {}
+    for n in batches:
         for _ in range(2):
             forward(n)
         times = []
@@ -879,9 +918,10 @@ def throughput(name, forward, card):
             forward(n)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        log(f'{name} batch {n}: median {n / statistics.median(times):.3f} '
-            f'img/s (forward ms {[round(t * 1e3, 2) for t in times]}) '
-            f'on {card}')
+        rates[n] = n / statistics.median(times)
+        log(f'{name} batch {n}: median {rates[n]:.3f} img/s (forward ms '
+            f'{[round(t * 1e3, 2) for t in times]}) on {card}')
+    return rates
 
 
 def counted(fn, kernels):
@@ -1296,6 +1336,250 @@ def check_training(G, mesh, lms, device, card, kernels, profile=False):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+class LaunchCount:
+    """A launch counter of a wrapper under another attribute, readable and
+    resettable as ``launches`` (``counted`` reads that name): K4's bf16
+    instance counts in ``triplane_sample.launches_bf16``."""
+
+    def __init__(self, wrapper, attr):
+        self.wrapper, self.attr = wrapper, attr
+
+    @property
+    def launches(self):
+        return getattr(self.wrapper, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.wrapper, self.attr, n)
+
+
+def psnr(got, want):
+    """PSNR in dB over a [-1, 1] range, as tests/test_bf16_parity.py."""
+    mse = float(((got.float() - want.float()) ** 2).mean())
+    return 10 * math.log10(4.0 / mse) if mse > 0 else math.inf
+
+
+def bf16_gaps(got, want):
+    """Per output: max-abs, PSNR, the fp32 output's largest magnitude, and
+    whether the bounds of BF16_BOUNDS hold."""
+    gaps = {}
+    for key, (max_abs, min_psnr) in BF16_BOUNDS.items():
+        err = float((got[key] - want[key]).abs().max())
+        p = psnr(got[key], want[key])
+        gaps[key] = dict(max_abs=err, psnr=p,
+                         scale=float(want[key].abs().max()),
+                         within=err <= max_abs and p >= min_psnr)
+    return gaps
+
+
+def check_k4_bf16(device):
+    """Phase 14's kernel check: K4's bf16-plane instance at phase 4's
+    shapes against its plain version, timed beside the float32 instance,
+    the plain version and the bf16 layout pass alone."""
+    from next3d_tpu_torch.ops.triplane import (channels_last,
+                                               triplane_sample,
+                                               triplane_sample_plain)
+    from next3d_tpu_torch.render.ray_sampler import sample_rays
+    from next3d_tpu_torch.render.renderer import sample_stratified
+    g = torch.Generator(device=device).manual_seed(SEED)
+    raw = torch.randn(4, 3, 32, 256, 256, generator=g, device=device)
+    planes = channels_last(raw, torch.bfloat16)
+    planes32 = channels_last(raw)
+    c = ffhq_camera(4, device)
+    ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
+                         c[:, 16:25].reshape(-1, 3, 3), 64)
+    depths = sample_stratified(None, ro, 2.25, 3.3, 48)
+    coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(4, -1, 3)
+    got = triplane_sample(planes, coords, 1.0)
+    want = triplane_sample_plain(planes, coords, 1.0)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ms = time_ms(lambda: triplane_sample(planes, coords, 1.0))
+    f32_ms = time_ms(lambda: triplane_sample(planes32, coords, 1.0))
+    plain_ms = time_ms(lambda: triplane_sample_plain(planes, coords, 1.0))
+    layout_ms = time_ms(lambda: channels_last(raw, torch.bfloat16))
+    layout_f32_ms = time_ms(lambda: channels_last(raw))
+    M = coords.shape[1]
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               library='none: no one PyTorch call samples bf16 planes at '
+               'float32 points (F.grid_sample takes one dtype for the '
+               'table and the grid)',
+               float32_instance_ms=f32_ms, layout_ms=layout_ms,
+               layout_float32_ms=layout_f32_ms,
+               **bound(nbytes(planes, coords, got), 12 * M * 32 * 8))
+    log(f'K4 bf16 planes (4, 3, 256, 256, 32), {M} points: max-abs {err:.3g} '
+        f'against its plain version; kernel {ms:.4f} ms, float32 instance '
+        f'{f32_ms:.4f} ms, plain {plain_ms:.3f} ms, bf16 layout pass '
+        f'{layout_ms:.4f} ms (float32 {layout_f32_ms:.4f}), bound '
+        f'{out["bound_ms"]:.4f} ms by {out["bound_by"]}')
+    if not err <= 1e-5:
+        raise RuntimeError('K4 bf16 disagrees with its plain version')
+    return out
+
+
+def bf16_stages(G32, Gbf, z, c, v):
+    """The bf16 forward against the fp32 forward stage by stage, at one
+    batch: each stage's max-abs and RMS gaps and their shares of the fp32
+    stage's largest magnitude (each generator from the same ws; render +
+    SR also from the fp32 planes, which isolates it)."""
+    ws = G32.mapping(z, c, truncation_psi=0.7, truncation_cutoff=14)
+    eg3d_ws = ws[:, :G32.texture_backbone.num_ws]
+    verts, lms = G32._split_v(v)
+    got = {}
+    for key, G in (('fp32', G32), ('bf16', Gbf)):
+        s = got[key] = {}
+        s['texture'], s['static plane'] = G.build_identity(ws,
+                                                           noise_mode='const')
+        if G.blends_mouth:
+            images, _, lm2d = G.rasterize(verts, lms, s['texture'])
+            s['rasterized front'] = images[0]
+            s['mouth + blend'] = G._mouth_pipeline(images[0], lm2d, eg3d_ws,
+                                                   'const', None)
+        s['planes'] = G.mix_planes_from_identity(
+            eg3d_ws, s['texture'], s['static plane'], verts, lms,
+            noise_mode='const')
+        out = G._render_from_planes(s['planes'], eg3d_ws, c, None, 'const',
+                                    None)
+        s['image_raw'], s['image'] = out['image_raw'], out['image']
+    out = Gbf._render_from_planes(got['fp32']['planes'], eg3d_ws, c, None,
+                                  'const', None)
+    got['bf16']['image_raw, bf16 render of the fp32 planes'] = \
+        out['image_raw']
+    got['bf16']['image, bf16 render + SR of the fp32 planes'] = out['image']
+    want = got['fp32']
+    want['image_raw, bf16 render of the fp32 planes'] = want['image_raw']
+    want['image, bf16 render + SR of the fp32 planes'] = want['image']
+    stages = {}
+    for stage, x in got['bf16'].items():
+        diff = x.float() - want[stage]
+        err = float(diff.abs().max())
+        rms = float(diff.square().mean().sqrt())
+        scale = float(want[stage].abs().max())
+        stages[stage] = dict(max_abs=err, rms=rms, scale=scale,
+                             share=err / scale, rms_share=rms / scale)
+    return stages
+
+
+def check_bf16_serving(build, forward_of, models, card, kernels, inputs,
+                       fp32_outs, mesh, lms, device):
+    """Phase 14: the bf16 serving policy (force_fp32=False) of both
+    generators, each with the weights of its fp32 generator in ``models``
+    (phase 6's flagship, phase 9's texture variant), at the 512^2 FFHQ
+    config: forwards at batch 1 and 4 (the flagship also at 8) against the
+    fp32 forwards on the same inputs (``fp32_outs`` where phase 6 or 9 ran
+    them), K4's bf16 instance launched in them and the float32 one not,
+    img/s of both, and the flagship's identity-cached reenact path over 16
+    jittered frames in both. Returns the kernel check, the bf16 instance's
+    launches in the forwards, and a summary."""
+    from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
+    from next3d_tpu_torch.models.triplane_texture import \
+        TriPlaneTextureGenerator
+    z, c, v = inputs
+    k4 = check_k4_bf16(device)
+    summary, launches = {}, 0
+    for name, cls, batches, flame_only in (
+            ('flagship', TriPlaneGenerator, (1, 4, 8), False),
+            ('texture variant', TriPlaneTextureGenerator, (1, 4), True)):
+        G32 = models[name]
+        Gbf = build(cls, force_fp32=False)
+        Gbf.load_state_dict(G32.state_dict())
+        fwd32, fwd_bf = forward_of(G32, flame_only), forward_of(Gbf,
+                                                                 flame_only)
+        res = summary[name] = {'batches': {}}
+        exceeded = False
+        for n in batches:
+            out, counts = counted(lambda: fwd_bf(n), kernels)
+            check_outputs(out, n)
+            if counts['K4bf16'] <= 0 or counts['K4'] != 0:
+                raise RuntimeError(f'{name} bf16 batch {n}: K4 launches '
+                                   f'{counts}; the bf16 instance must run '
+                                   f'and the float32 one must not')
+            launches += counts['K4bf16']
+            want = fp32_outs[name].get(n) or fwd32(n)
+            gaps = bf16_gaps(out, want)
+            res['batches'][n] = dict(launches=counts, gaps=gaps)
+            exceeded |= not all(g['within'] for g in gaps.values())
+            log(f'{name} bf16 512^2 forward, batch {n}: finite, depth in the '
+                f'sample range; launches {counts}; against the fp32 forward '
+                + '; '.join(f'{k} max-abs {g["max_abs"]:.4g} (fp32 scale '
+                            f'{g["scale"]:.4g}), PSNR {g["psnr"]:.2f} dB, '
+                            f'{"within" if g["within"] else "beyond"} the '
+                            f'bound {BF16_BOUNDS[k]}'
+                            for k, g in gaps.items()))
+            del out, want
+        # the bounds are tests/test_bf16_parity.py's; where the random
+        # weights' images exceed them, say where the gap grows
+        stages = bf16_stages(G32, Gbf, z[1], c[1],
+                             v[1][:, :5023] if flame_only else v[1])
+        res['stages_batch_1'] = stages
+        res['within_bounds'] = not exceeded
+        for stage, s in stages.items():
+            log(f'{name} bf16 against fp32 by stage, batch 1: {stage}: '
+                f'max-abs {s["max_abs"]:.4g}, RMS {s["rms"]:.4g}, of scale '
+                f'{s["scale"]:.4g} ({100 * s["share"]:.2f}%, RMS '
+                f'{100 * s["rms_share"]:.3f}%)')
+        faults = [k for k, s in stages.items()
+                  if not s['rms_share'] <= BF16_STAGE_FAULT]
+        if faults:
+            raise RuntimeError(f'{name} bf16: stages {faults} are more than '
+                               f'{BF16_STAGE_FAULT:.0%} RMS of their scale '
+                               f'from fp32')
+        for label, fwd in (('fp32', fwd32), ('bf16', fwd_bf)):
+            res[f'{label}_img_s'] = throughput(f'{name} {label}', fwd, card,
+                                               batches)
+
+        if name == 'flagship':
+            res['reenact'] = reenact_rates(G32, Gbf, z[1], c[1], mesh, lms,
+                                           device, card)
+        del Gbf
+        torch.cuda.empty_cache()
+    return k4, launches, summary
+
+
+def reenact_rates(G32, Gbf, z, c, mesh, lms, device, card):
+    """reenact's per-frame path (synthesis_from_identity, identity built
+    once) over 16 jittered frames at batch 1, fp32 and bf16: f/s from the
+    start of the first frame to the end of the last. The bf16 path's first
+    frame (the neutral head) is held to the bf16 synthesis under
+    deterministic cuDNN."""
+    frames = head_batch(mesh, lms, 16, device, jitter=0.003)
+    rates = {}
+    for label, G in (('fp32', G32), ('bf16', Gbf)):
+        ws = G.mapping(z, c, truncation_psi=0.7, truncation_cutoff=14)
+        textures, static = G.build_identity(ws, noise_mode='const')
+
+        def run():
+            outs = [G.synthesis_from_identity(ws, textures, static, c,
+                                              frames[f:f + 1],
+                                              noise_mode='const')
+                    for f in range(len(frames))]
+            torch.cuda.synchronize()
+            return outs
+
+        run()                                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = run()
+        seconds = time.perf_counter() - t0
+        for out in outs:
+            check_outputs(out, 1)
+        rates[label] = len(frames) / seconds
+        log(f'reenact path {label}: {len(frames)} frames at 512^2, batch 1, '
+            f'identity cached: {rates[label]:.3f} f/s on {card}')
+        if label == 'bf16':
+            torch.backends.cudnn.deterministic = True
+            ref = G.synthesis(ws, c, frames[:1], noise_mode='const')
+            got = G.synthesis_from_identity(ws, textures, static, c,
+                                            frames[:1], noise_mode='const')
+            torch.backends.cudnn.deterministic = False
+            err = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+            log(f'bf16 synthesis_from_identity frame 0 vs bf16 synthesis, '
+                f'deterministic cuDNN: max-abs {err:.3g}')
+            if not err <= 1e-4:
+                raise RuntimeError('bf16 identity-cached synthesis disagrees')
+    return rates
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
@@ -1348,6 +1632,8 @@ def main():
                'K2': raster.rasterize_binned,
                'K3': raster.rasterize_binned_uv16,
                'K4': triplane.triplane_sample,
+               'K4bf16': LaunchCount(triplane.triplane_sample,
+                                     'launches_bf16'),
                'K4b': triplane.triplane_sample_backward,
                'K5': raster_zbuffer.rasterize_zbuffer,
                'K6': dma_gather.gather_row_blocks}
@@ -1425,7 +1711,8 @@ def main():
                 profile_stages('texture variant', texture_stages(
                     T, lambda: forward_t(n), z[n], c[n], v[n][:, :5023]),
                     lambda: forward_t(n), n)
-        del T, outs_t
+        models = {'flagship': G, 'texture variant': T}
+        fp32_outs = {'flagship': outs, 'texture variant': outs_t}
 
         # the default forward is not bit-reproducible on the card (cuDNN's
         # transposed convolutions may accumulate with atomics), so this
@@ -1476,6 +1763,15 @@ def main():
                                            kernels, profile=opts.profile)
     launches['K4b'] = train_launches['K4b']
 
+    with torch.no_grad():
+        # bench.py's default batch, for phase 14's flagship
+        z[8] = torch.randn(8, 512, generator=g, device=device)
+        c[8] = ffhq_camera(8, device)
+        v[8] = head_batch(mesh, head_lms, 8, device)
+        stats['K4bf16'], launches['K4bf16'], bf16 = check_bf16_serving(
+            build, forward_of, models, card, kernels, (z, c, v), fp32_outs,
+            mesh, head_lms, device)
+
     names = {
         'K1': ('rasterize_binned_uv', 'raster_binned_uv.cu',
                'next3d_tpu/ops/pallas_raster.py:489'),
@@ -1489,6 +1785,10 @@ def main():
         # gather of render/renderer.py:256 sample_from_planes
         'K4b': ('triplane_sample_backward', 'triplane_sample.cu',
                 'next3d_tpu/ops/pallas_triplane.py:177'),
+        # the same TPU kernel on planes stored in bf16 (gather_bf16, JAX
+        # render/renderer.py:50-65)
+        'K4bf16': ('triplane_sample_bf16', 'triplane_sample.cu',
+                   'next3d_tpu/ops/pallas_triplane.py:177'),
         'K5': ('rasterize_zbuffer', 'raster_zbuffer.cu',
                'next3d_tpu/ops/pallas_raster.py:101'),
         'K6': ('gather_row_blocks', 'gather_row_blocks.cu',
@@ -1506,6 +1806,7 @@ def main():
         if k in ('K1', 'K4', 'K4b'):
             entry['train_launches'] = train_launches[k]
     log(json.dumps({'train': train}))
+    log(json.dumps({'bf16': bf16}))
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

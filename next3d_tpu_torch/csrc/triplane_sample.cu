@@ -10,24 +10,40 @@
 // align_corners=False, giving (N, 3, M, C).
 //
 // What bounds it on the H100: bytes. Per launch of a 512^2 forward's pass
-// (N = 4, M = 196,608, C = 32) it reads 100.7 MB of planes and 9.4 MB of
-// coordinates and writes 302 MB of output, against 8 float operations a
-// tap and channel. The planes are laid out channels-last, (N * 3, H, W, C),
-// once per forward by the wrapper, so a tap's C channels are one
-// contiguous 128 B line.
+// (N = 4, M = 196,608, C = 32) it reads 100.7 MB of float32 planes and 9.4
+// MB of coordinates and writes 302 MB of output, against 8 float
+// operations a tap and channel. The planes are laid out channels-last,
+// (N * 3, H, W, C), once per forward by the wrapper, so a tap's C channels
+// are one contiguous line.
 //
 // Design: a group of C / 4 lanes owns one point (8 lanes at C = 32), and
 // each lane owns 4 channels of all 3 planes. The point's coordinates, its
 // 3 x 4 tap addresses and weights are computed once per lane in 32-bit
 // integers (no division by a runtime value beyond the one that splits the
-// point index into (image, point)). Each tap is one 16-byte read through
-// the read-only path (__ldg), so a point's tap on one plane is one 128 B
-// line across its lanes; a lane issues its 12 independent taps before it
-// uses any of them. Each output is one 16-byte streaming store (__stcs,
-// evict-first), so that the output stream does not push the image's 25 MB
-// of planes out of the 50 MB L2. Blocks go in point order, image by image,
-// and consecutive points of a warp are consecutive depth samples of a ray,
-// whose taps share lines in L1.
+// point index into (image, point)). Each tap is one read a lane through
+// the read-only path (__ldg), 16 bytes in float32 and 8 in bf16, so a
+// point's tap on one plane is one line across its lanes (128 B in float32,
+// 64 B in bf16); a lane issues its 12 independent taps before it uses any
+// of them. Each output is one 16-byte streaming store a lane (__stcs,
+// evict-first), a point's 32 channels one full 128 B line, so that the
+// output stream does not push the image's planes out of the 50 MB L2.
+// Blocks go in point order, image by image, and consecutive points of a
+// warp are consecutive depth samples of a ray, whose taps share lines in
+// L1.
+//
+// The bf16 instance (planes stored in bf16, the renderer's gather_bf16
+// option; JAX render/renderer.py:50-65) widens each channel exactly to
+// float32 (a bf16 is the high half of a float32) and computes the weights
+// and the 4-tap sums in float32, as the float32 instance does, and writes
+// float32. The JAX package rounds each product and the sum in bf16
+// (ops/grid_sample.py:93-99); float32 is more exact and costs the card
+// nothing here. Its bytes at a 512^2 pass: 50.3 MB of planes, 9.4 MB of
+// coordinates and 302 MB of output. The output, float32 in both instances,
+// is 83% of them, so halving the planes barely moves the bound. Its lanes
+// keep the float32 instance's layout, 4 channels a lane, with 8-byte taps:
+// 4 lanes of 8 channels with 16-byte taps each wrote a point's line as two
+// half-sector stores a lane and took 0.1588 ms against the float32
+// instance's 0.1486 on an H100 80GB HBM3 at 700 W (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,12 +52,37 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int kC>
+// The planes' storage types. A lane reads 4 channels of a tap (16 bytes
+// in float32, 8 in bf16) and widens them to float32.
+struct F32 {
+  using Raw = uint4;
+  __device__ static void widen(const uint4 r, float* v) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+};
+
+struct Bf16 {
+  using Raw = uint2;
+  // each 32-bit word holds two channels, the first in its low half; a
+  // bf16 is the high half of the float32 with the same value
+  __device__ static void widen(const uint2 r, float* v) {
+    v[0] = __uint_as_float(r.x << 16);
+    v[1] = __uint_as_float(r.x & 0xffff0000u);
+    v[2] = __uint_as_float(r.y << 16);
+    v[3] = __uint_as_float(r.y & 0xffff0000u);
+  }
+};
+
+template <typename T, int kC>
 __global__ void __launch_bounds__(kThreads)
-triplane_sample_kernel(const float4* __restrict__ planes,  // (N*3, H, W, C/4)
-                       const float* __restrict__ coords,   // (N, M, 3)
-                       float4* __restrict__ out,           // (N, 3, M, C/4)
+triplane_sample_kernel(const typename T::Raw* __restrict__ planes,
+                       const float* __restrict__ coords,  // (N, M, 3)
+                       float4* __restrict__ out,          // (N, 3, M, C/4)
                        int points, int M, int H, int W, float scale) {
+  using Raw = typename T::Raw;
   constexpr int kLanes = kC / 4;
   constexpr int kPointsPerBlock = kThreads / kLanes;
   const int lane = threadIdx.x % kLanes;
@@ -54,7 +95,7 @@ triplane_sample_kernel(const float4* __restrict__ planes,  // (N*3, H, W, C/4)
   const float y = scale * __ldg(coords + 3 * point + 1);
   const float z = scale * __ldg(coords + 3 * point + 2);
 
-  float4 tap[3][4];
+  Raw tap[3][4];
   float w[3][4];
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
@@ -71,27 +112,28 @@ triplane_sample_kernel(const float4* __restrict__ planes,  // (N*3, H, W, C/4)
     const float wx1 = ix - fx0, wy1 = iy - fy0;
     const float wx0 = 1.f - wx1, wy0 = 1.f - wy1;
     const int x0 = (int)fx0, y0 = (int)fy0;
-    const float4* plane = planes + (n * 3 + p) * H * W * kLanes + lane;
+    const Raw* plane = planes + (n * 3 + p) * H * W * kLanes + lane;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int xi = x0 + (k & 1), yi = y0 + (k >> 1);
       w[p][k] = ((k >> 1) ? wy1 : wy0) * ((k & 1) ? wx1 : wx0);
       tap[p][k] = (xi >= 0 && xi < W && yi >= 0 && yi < H)
           ? __ldg(plane + (yi * W + xi) * kLanes)
-          : make_float4(0.f, 0.f, 0.f, 0.f);
+          : Raw{};
     }
   }
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      acc.x += tap[p][k].x * w[p][k];
-      acc.y += tap[p][k].y * w[p][k];
-      acc.z += tap[p][k].z * w[p][k];
-      acc.w += tap[p][k].w * w[p][k];
+      float v[4];
+      T::widen(tap[p][k], v);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] += v[c] * w[p][k];
     }
-    __stcs(out + ((n * 3 + p) * M + m) * kLanes + lane, acc);
+    __stcs(out + ((n * 3 + p) * M + m) * kLanes + lane,
+           make_float4(acc[0], acc[1], acc[2], acc[3]));
   }
 }
 
@@ -223,25 +265,41 @@ triplane_sample_backward_kernel(const float4* __restrict__ grad_out,
   if (cn >= 0) flush();
 }
 
-}  // namespace
 
-
-// c must be 32 (the only instance); the wrapper checks it, and that every
-// index of planes, coordinates and output fits in 32 bits, and that planes
-// are 16-byte aligned.
-extern "C" int triplane_sample(const void* planes, const void* coords,
-                               void* out, int n, int m, int h, int w, int c,
-                               float scale, void* stream) {
+template <typename T>
+int launch_sample(const void* planes, const void* coords, void* out, int n,
+                  int m, int h, int w, int c, float scale, void* stream) {
   constexpr int kC = 32;
   if (c != kC) return (int)cudaErrorInvalidValue;
   const int points = n * m;
   if (points == 0) return 0;
   constexpr int kPointsPerBlock = kThreads / (kC / 4);
   const int blocks = (points + kPointsPerBlock - 1) / kPointsPerBlock;
-  triplane_sample_kernel<kC><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)planes, (const float*)coords, (float4*)out, points, m, h,
-      w, scale);
+  triplane_sample_kernel<T, kC>
+      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const typename T::Raw*)planes, (const float*)coords, (float4*)out,
+          points, m, h, w, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// c must be 32 (the only instance); the wrapper checks it, and that every
+// index of planes, coordinates and output fits in 32 bits, and that planes
+// are 16-byte aligned. Planes in float32, or in bf16 (_bf16); coordinates
+// and output in float32.
+extern "C" int triplane_sample(const void* planes, const void* coords,
+                               void* out, int n, int m, int h, int w, int c,
+                               float scale, void* stream) {
+  return launch_sample<F32>(planes, coords, out, n, m, h, w, c, scale,
+                            stream);
+}
+
+extern "C" int triplane_sample_bf16(const void* planes, const void* coords,
+                                    void* out, int n, int m, int h, int w,
+                                    int c, float scale, void* stream) {
+  return launch_sample<Bf16>(planes, coords, out, n, m, h, w, c, scale,
+                             stream);
 }
 
 // grad_planes must be zero-filled; the wrapper checks what it checks for

@@ -13,10 +13,20 @@ K4 inside the volume renderer. The mouth crop and paste are per-sample
 slices plus antialiased ``F.interpolate``, which reads the landmark boxes on
 the host.
 
-The port runs float32 only (the JAX ``force_fp32=True`` mode).
-``generator`` in the constructor seeds the parameters; ``generator`` in the
-forward methods drives ``noise_mode='random'`` and the renderer's jitter
-(None gives the deterministic midpoints).
+``force_fp32=True`` (the default, as in JAX) runs everything float32.
+``force_fp32=False`` is the JAX package's serving fast path, by explicit
+casts where JAX casts (not autocast): the ``use_fp16`` blocks of every
+backbone, StyleUNet and super-resolution head run bf16 (the top
+``num_fp16_res`` resolutions, default 4; the SR blocks when
+``sr_num_fp16_res > 0``), and so do the StyleUNets' encoders and fusions,
+the mouth crop and paste and the decoder's MLP (``decoder_bf16``); the
+texture table and the eye mask are rounded to bf16 before the texture
+sample, and K4 samples planes stored in bf16 (``gather_bf16``). Parameters
+stay float32; the rasterizers, the mapping network, the ray marcher and
+the alpha mix run float32. ``generator`` in the constructor seeds the
+parameters; ``generator`` in the forward methods drives
+``noise_mode='random'`` and the renderer's jitter (None gives the
+deterministic midpoints).
 """
 
 from __future__ import annotations
@@ -32,13 +42,12 @@ from ..ops.grid_sample import grid_sample_2d
 from ..ops.interpolate import (interpolate_nearest, paste_resized_region,
                                resample_region)
 from ..ops.raster import TILE
-from ..ops.triplane import channels_last
 from ..render.fill_mouth import fill_mouth
 from ..render.mesh import angle2matrix, batch_orth_proj, face_vertices
 from ..render.rasterizer import (rasterize_uv_with_alpha,
                                  required_patch_size, resolve_impl)
 from ..render.ray_sampler import sample_rays
-from ..render.renderer import ImportanceRenderer
+from ..render.renderer import ImportanceRenderer, layout_planes
 from ..utils.obj_io import ObjMesh, load_obj
 from .osg_decoder import OSGDecoder
 
@@ -67,14 +76,17 @@ class TriPlaneGenerator(nn.Module):
                  topology_path, uv_face_eye_mask_path=None, sr_num_fp16_res=0,
                  mapping_kwargs=None, rendering_kwargs=None, sr_kwargs=None,
                  rasterizer_impl='auto', rasterizer_patch=32,
-                 plane_resolution=256, generator=None, **synthesis_kwargs):
+                 plane_resolution=256, force_fp32=True, generator=None,
+                 **synthesis_kwargs):
         super().__init__()
         self.z_dim = z_dim
         self.c_dim = c_dim
         self.w_dim = w_dim
         self.img_resolution = img_resolution
         self.img_channels = img_channels
+        self.force_fp32 = force_fp32
         self.rendering_kwargs = dict(rendering_kwargs or {})
+        self.rendering_kwargs.setdefault('gather_bf16', not force_fp32)
         self.neural_rendering_resolution = 64
         self.uv_resolution = R = plane_resolution
         self.rasterizer_impl = resolve_impl(rasterizer_impl)
@@ -108,7 +120,9 @@ class TriPlaneGenerator(nn.Module):
             generator=generator, **(sr_kwargs or {}))
         self.decoder = OSGDecoder(
             32, {'decoder_lr_mul': self.rendering_kwargs.get(
-                'decoder_lr_mul', 1), 'decoder_output_dim': 32},
+                'decoder_lr_mul', 1), 'decoder_output_dim': 32,
+                'decoder_bf16': self.rendering_kwargs.get('decoder_bf16',
+                                                          not force_fp32)},
             generator=generator)
         self.orth_scale = nn.Parameter(torch.tensor([[5.0]]))
         self.orth_shift = nn.Parameter(torch.tensor([[0.0, -0.01, -0.01]]))
@@ -214,6 +228,12 @@ class TriPlaneGenerator(nn.Module):
             N, V * res, res, 2)
         table = torch.cat([textures, self.uv_face_mask.expand(
             N, 1, res, res)], dim=1)
+        if not self.force_fp32:
+            # the texture and the eye mask are stored in bf16 (JAX
+            # :316-317,338-341); the rounded table is sampled in float32,
+            # since F.grid_sample takes one dtype for table and grid, and a
+            # bf16 grid would move positions by up to a texel
+            table = table.to(torch.bfloat16).float()
         sampled = grid_sample_2d(table, grid_vn)          # (N, 33, V*res, res)
         sampled = sampled.reshape(N, -1, V, res, res).permute(2, 0, 1, 3, 4)
         sampled = sampled.reshape(V * N, -1, res, res)
@@ -259,17 +279,24 @@ class TriPlaneGenerator(nn.Module):
     def _mouth_pipeline(self, rendering_front, lm2d_front, eg3d_ws,
                         noise_mode, generator):
         boxes = self.gen_mouth_mask(lm2d_front).tolist()
+        # under force_fp32=False the crop and the paste run bf16 (JAX
+        # :393-409)
+        front = rendering_front if self.force_fp32 \
+            else rendering_front.to(torch.bfloat16)
         crop = torch.stack([
             resample_region(img, y0, x0, y1 - y0, x1 - x0, 64, 64)
-            for img, (y0, y1, x0, x1) in zip(rendering_front, boxes)])
+            for img, (y0, y1, x0, x1) in zip(front, boxes)])
         mouths_plane = self.mouth_backbone.synthesis(
-            crop, eg3d_ws, noise_mode=noise_mode, generator=generator)
+            crop, eg3d_ws, noise_mode=noise_mode, generator=generator,
+            force_fp32=self.force_fp32)
         stitched = torch.stack([
-            paste_resized_region(img, patch, y0, x0, y1 - y0, x1 - x0)
+            paste_resized_region(img, patch.to(front.dtype), y0, x0,
+                                 y1 - y0, x1 - x0)
             for img, patch, (y0, y1, x0, x1)
-            in zip(rendering_front, mouths_plane, boxes)])
+            in zip(front, mouths_plane, boxes)])
         return self.neural_blending.synthesis(
-            stitched, eg3d_ws, noise_mode=noise_mode, generator=generator)
+            stitched, eg3d_ws, noise_mode=noise_mode, generator=generator,
+            force_fp32=self.force_fp32)
 
     # ----------------------------------------------------------- plane build
     def _split_v(self, v):
@@ -283,10 +310,10 @@ class TriPlaneGenerator(nn.Module):
         """The ws-only identity work: (neural texture (N, 32, R, R), static
         tri-plane (N, 3, 32, R, R)), cacheable per subject."""
         n_tex = self.texture_backbone.num_ws
-        textures = self.texture_backbone.synthesis(
-            ws[:, n_tex:], noise_mode=noise_mode, generator=generator)
-        static_plane = self.backbone.synthesis(
-            ws[:, :n_tex], noise_mode=noise_mode, generator=generator)
+        kw = dict(noise_mode=noise_mode, generator=generator,
+                  force_fp32=self.force_fp32)
+        textures = self.texture_backbone.synthesis(ws[:, n_tex:], **kw)
+        static_plane = self.backbone.synthesis(ws[:, :n_tex], **kw)
         N = static_plane.shape[0]
         return textures, static_plane.reshape(N, 3, 32,
                                               *static_plane.shape[-2:])
@@ -355,7 +382,7 @@ class TriPlaneGenerator(nn.Module):
             rgb_image, feature_image, eg3d_ws,
             noise_mode=self.rendering_kwargs.get('superresolution_noise_mode',
                                                  noise_mode),
-            generator=generator)
+            generator=generator, force_fp32=self.force_fp32)
         return {'image': sr_image, 'image_raw': rgb_image,
                 'image_depth': depth_image}
 
@@ -381,9 +408,10 @@ class TriPlaneGenerator(nn.Module):
         ``build_planes`` returns them: shape extraction builds them once and
         decodes its chunks from them. ``generator`` draws the renderer's
         ``density_noise``, where that option is set."""
-        return self.renderer.run_model(channels_last(planes), self.decoder,
-                                       coordinates, directions,
-                                       self.rendering_kwargs, generator)
+        return self.renderer.run_model(
+            layout_planes(planes, self.rendering_kwargs['gather_bf16']),
+            self.decoder, coordinates, directions, self.rendering_kwargs,
+            generator)
 
     # ------------------------------------------------------------------ forward
     def forward(self, z, c, v, truncation_psi=1, truncation_cutoff=None,

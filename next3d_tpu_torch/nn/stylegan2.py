@@ -12,8 +12,14 @@ Parameters are drawn at construction from ``generator`` (a
 ``init`` distributions. Noise in ``noise_mode='random'`` is drawn from the
 ``generator`` passed to ``forward``, which must live on the input's device.
 
-The port runs float32 only (the JAX package's ``force_fp32=True`` parity
-mode); its bf16 policy is not ported yet.
+Precision follows the JAX package's policy by explicit casts, not by
+autocast: parameters stay float32, and a block built with ``use_fp16``
+(the top ``num_fp16_res`` resolutions of a synthesis network) runs in
+bfloat16 when its forward gets ``force_fp32=False``. There its activations
+are bf16, each weight, bias, style, noise and demodulation coefficient is
+cast to bf16 where it is used, and modulated_conv2d pre-normalizes the
+weights and styles; its ToRGB output goes back to float32. With
+``force_fp32=True``, the default, everything runs float32.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from torch import nn
 
 from ..ops import bias_act, conv2d_resample, setup_filter, upsample2d
 from ..ops.bias_act import activation_funcs
+
+# the reduced-precision types in which modulated_conv2d pre-normalizes
+REDUCED = (torch.bfloat16, torch.float16)
 
 
 def normalize_2nd_moment(x, dim=1, eps=1e-8):
@@ -42,6 +51,12 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
     batch_size = x.shape[0]
     out_channels, in_channels, kh, kw = weight.shape
 
+    # pre-normalize in reduced precision (reference :54-56; JAX :44-52)
+    if x.dtype in REDUCED and demodulate:
+        w_norm = weight.abs().amax(dim=[1, 2, 3], keepdim=True)
+        weight = weight * (1 / math.sqrt(in_channels * kh * kw) / w_norm)
+        styles = styles / styles.abs().amax(dim=1, keepdim=True)
+
     w = None
     dcoefs = None
     if demodulate or fused_modconv:
@@ -52,20 +67,21 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
         w = w * dcoefs.reshape(batch_size, -1, 1, 1, 1)
 
     if not fused_modconv:
-        x = x * styles.reshape(batch_size, -1, 1, 1)
-        x = conv2d_resample(x, weight, f=resample_filter, up=up, down=down,
-                            padding=padding, flip_weight=flip_weight)
+        x = x * styles.to(x.dtype).reshape(batch_size, -1, 1, 1)
+        x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
+                            down=down, padding=padding,
+                            flip_weight=flip_weight)
         if demodulate:
-            x = x * dcoefs.reshape(batch_size, -1, 1, 1)
+            x = x * dcoefs.to(x.dtype).reshape(batch_size, -1, 1, 1)
         if noise is not None:
-            x = x + noise
+            x = x + noise.to(x.dtype)
         return x
 
     # fused: the batch becomes conv groups (reference :81-91)
     x = x.reshape(1, -1, *x.shape[2:])
     w = w.reshape(-1, in_channels, kh, kw)
-    x = conv2d_resample(x, w, f=resample_filter, up=up, down=down,
-                        padding=padding, groups=batch_size,
+    x = conv2d_resample(x, w.to(x.dtype), f=resample_filter, up=up,
+                        down=down, padding=padding, groups=batch_size,
                         flip_weight=flip_weight)
     x = x.reshape(batch_size, -1, *x.shape[2:])
     if noise is not None:
@@ -94,10 +110,13 @@ class FullyConnected(nn.Module):
             self.register_parameter('bias', None)
 
     def forward(self, x):
-        w = self.weight * self.weight_gain
+        # cast, then scale, in x's dtype (JAX :117-127)
+        w = self.weight.to(x.dtype) * self.weight_gain
         b = self.bias
-        if b is not None and self.bias_gain != 1:
-            b = b * self.bias_gain
+        if b is not None:
+            b = b.to(x.dtype)
+            if self.bias_gain != 1:
+                b = b * self.bias_gain
         return bias_act(torch.matmul(x, w.t()), b, act=self.activation)
 
 
@@ -129,7 +148,7 @@ class Conv2d(nn.Module):
             self.register_parameter('bias', None)
 
     def forward(self, x, gain=1):
-        x = conv2d_resample(x, self.weight * self.weight_gain,
+        x = conv2d_resample(x, (self.weight * self.weight_gain).to(x.dtype),
                             f=self.resample_filter, down=self.down,
                             padding=self.padding)
         clamp = self.conv_clamp * gain if self.conv_clamp is not None \
@@ -233,9 +252,10 @@ class SynthesisLayer(nn.Module):
         if self.use_noise and noise_mode == 'random':
             noise = torch.randn(x.shape[0], 1, self.resolution,
                                 self.resolution, generator=generator,
-                                device=x.device) * self.noise_strength
+                                device=x.device).to(x.dtype) \
+                * self.noise_strength.to(x.dtype)
         if self.use_noise and noise_mode == 'const':
-            noise = self.noise_const * self.noise_strength
+            noise = (self.noise_const * self.noise_strength).to(x.dtype)
         x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
                              padding=self.padding,
                              resample_filter=self.resample_filter,
@@ -275,13 +295,17 @@ class SynthesisBlock(nn.Module):
     through ToRGB (reference: networks_stylegan2.py:492-591). ``no_up=True``
     gives the superresolution variant SynthesisBlockNoUp
     (superresolution.py:158-257). Modulation is unfused by default, as in
-    the JAX package (both forms are equal in float32).
+    the JAX package (both forms are equal in float32). With ``use_fp16``
+    the block runs bfloat16 unless its forward gets ``force_fp32=True``
+    (JAX :404-407).
     """
 
     def __init__(self, in_channels, out_channels, w_dim, resolution,
                  img_channels, resample_filter=(1, 3, 3, 1), conv_clamp=256,
-                 no_up=False, generator=None, **layer_kwargs):
+                 use_fp16=False, no_up=False, generator=None,
+                 **layer_kwargs):
         super().__init__()
+        self.use_fp16 = use_fp16
         self.no_up = no_up
         self.register_buffer('resample_filter', torch.from_numpy(
             setup_filter(resample_filter)), persistent=False)
@@ -303,20 +327,23 @@ class SynthesisBlock(nn.Module):
         self.num_conv = 1 if in_channels == 0 else 2
         self.num_torgb = 1
 
-    def forward(self, x, img, ws, fused_modconv=False, noise_mode='random',
-                generator=None):
-        """ws: (N, num_conv + num_torgb, w_dim)."""
+    def forward(self, x, img, ws, force_fp32=True, fused_modconv=False,
+                noise_mode='random', generator=None):
+        """ws: (N, num_conv + num_torgb, w_dim). Returns x in the block's
+        dtype and img in float32."""
+        dtype = torch.bfloat16 if self.use_fp16 and not force_fp32 \
+            else torch.float32
         kw = dict(fused_modconv=fused_modconv, noise_mode=noise_mode,
                   generator=generator)
         w_iter = iter(ws.unbind(dim=1))
         if self.conv0 is None:
-            x = self.const[None].expand(ws.shape[0], -1, -1, -1)
+            x = self.const.to(dtype)[None].expand(ws.shape[0], -1, -1, -1)
         else:
-            x = self.conv0(x, next(w_iter), **kw)
+            x = self.conv0(x.to(dtype), next(w_iter), **kw)
         x = self.conv1(x, next(w_iter), **kw)
         if img is not None and not self.no_up:
             img = upsample2d(img, self.resample_filter)
-        y = self.torgb(x, next(w_iter), fused_modconv=fused_modconv)
+        y = self.torgb(x, next(w_iter), fused_modconv=fused_modconv).float()
         return x, (img + y if img is not None else y)
 
 
@@ -335,13 +362,19 @@ def split_block_ws(blocks, ws):
     return out
 
 
+def fp16_resolution(img_resolution, num_fp16_res):
+    """The lowest resolution of the ``use_fp16`` blocks: the top
+    ``num_fp16_res`` resolutions, never below 8 (JAX :474-476)."""
+    return max(2 ** (int(np.log2(img_resolution)) + 1 - num_fp16_res), 8)
+
+
 class SynthesisNetwork(nn.Module):
     """Progressive const-4x4 -> img_resolution stack
     (reference: networks_stylegan2.py:596-651)."""
 
     def __init__(self, w_dim, img_resolution, img_channels,
-                 channel_base=32768, channel_max=512, generator=None,
-                 **block_kwargs):
+                 channel_base=32768, channel_max=512, num_fp16_res=4,
+                 generator=None, **block_kwargs):
         super().__init__()
         assert img_resolution >= 4 and \
             (img_resolution & (img_resolution - 1)) == 0
@@ -352,24 +385,27 @@ class SynthesisNetwork(nn.Module):
             2, int(np.log2(img_resolution)) + 1)]
         channels = {res: channels_for(res, channel_base, channel_max)
                     for res in self.block_resolutions}
+        fp16_res = fp16_resolution(img_resolution, num_fp16_res)
         self.num_ws = 0
         for res in self.block_resolutions:
             block = SynthesisBlock(
                 channels[res // 2] if res > 4 else 0, channels[res],
                 w_dim=w_dim, resolution=res, img_channels=img_channels,
-                generator=generator, **block_kwargs)
+                use_fp16=res >= fp16_res, generator=generator,
+                **block_kwargs)
             self.num_ws += block.num_conv
             if res == img_resolution:
                 self.num_ws += block.num_torgb
             setattr(self, f'b{res}', block)
 
     def forward(self, ws, noise_mode='random', generator=None,
-                fused_modconv=False):
+                fused_modconv=False, force_fp32=True):
         assert ws.shape[1] == self.num_ws, (ws.shape, self.num_ws)
         blocks = [getattr(self, f'b{res}') for res in self.block_resolutions]
         x = img = None
         for block, cur_ws in zip(blocks, split_block_ws(blocks, ws.float())):
-            x, img = block(x, img, cur_ws, fused_modconv=fused_modconv,
+            x, img = block(x, img, cur_ws, force_fp32=force_fp32,
+                           fused_modconv=fused_modconv,
                            noise_mode=noise_mode, generator=generator)
         return img
 

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..ops import downsample2d, setup_filter
 from .stylegan2 import (Conv2d, MappingNetwork, SynthesisBlock, channels_for,
-                        split_block_ws)
+                        fp16_resolution, split_block_ws)
 
 
 class EncoderResBlock(nn.Module):
@@ -51,7 +51,8 @@ class CondSynthesisNetwork(nn.Module):
 
     def __init__(self, w_dim, img_resolution, img_channels, cond_channels=3,
                  in_size=64, final_size=4, channel_base=32768, channel_max=512,
-                 num_cond_res=64, generator=None, **block_kwargs):
+                 num_fp16_res=4, num_cond_res=64, generator=None,
+                 **block_kwargs):
         super().__init__()
         assert img_resolution >= 4 and \
             (img_resolution & (img_resolution - 1)) == 0
@@ -61,12 +62,14 @@ class CondSynthesisNetwork(nn.Module):
             2, int(np.log2(img_resolution)) + 1)]
         channels = {res: channels_for(res, channel_base, channel_max)
                     for res in self.block_resolutions}
+        fp16_res = fp16_resolution(img_resolution, num_fp16_res)
         self.num_ws = 0
         for res in self.block_resolutions:
             block = SynthesisBlock(
                 channels[res // 2] if res > 4 else 0, channels[res],
                 w_dim=w_dim, resolution=res, img_channels=img_channels,
-                generator=generator, **block_kwargs)
+                use_fp16=res >= fp16_res, generator=generator,
+                **block_kwargs)
             self.num_ws += block.num_conv
             if res == img_resolution:
                 self.num_ws += block.num_torgb
@@ -87,11 +90,16 @@ class CondSynthesisNetwork(nn.Module):
             for res in encoder_res[::-1]])
 
     def forward(self, x_in, ws, noise_mode='random', generator=None,
-                fused_modconv=False):
+                fused_modconv=False, force_fp32=True):
         assert ws.shape[1] == self.num_ws, (ws.shape, self.num_ws)
         blocks = [getattr(self, f'b{res}') for res in self.block_resolutions]
         block_ws = split_block_ws(blocks, ws.float())
 
+        # with force_fp32=False the encoder and fusion convolutions run
+        # bf16 too (JAX :144-149); a fusion input that mixes a float32 block
+        # output with a bf16 feature is float32, as in JAX
+        if not force_fp32:
+            x_in = x_in.to(torch.bfloat16)
         cond_list = []
         cond_out = None
         for enc in self.encoder:
@@ -110,7 +118,8 @@ class CondSynthesisNetwork(nn.Module):
                 else:
                     x = self.fusion[index](
                         torch.cat([x, cond_list[index]], dim=1))
-            x, img = block(x, img, cur_ws, fused_modconv=fused_modconv,
+            x, img = block(x, img, cur_ws, force_fp32=force_fp32,
+                           fused_modconv=fused_modconv,
                            noise_mode=noise_mode, generator=generator)
         return img
 

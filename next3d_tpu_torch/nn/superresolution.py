@@ -5,7 +5,8 @@ training_avatar_texture/superresolution.py): two synthesis blocks fed with
 (32-ch features, 3-ch rgb) that reuse the last w three times, after an
 (antialiased) bilinear resize of the input to ``input_resolution``.
 ``SuperresolutionHybrid8XDC`` is the 512^2 FFHQ head; ``...2X`` serves the
-small 128^2 configurations.
+small 128^2 configurations. Both blocks are ``use_fp16`` when
+``sr_num_fp16_res > 0``, and run bf16 under ``force_fp32=False``.
 """
 
 from __future__ import annotations
@@ -19,14 +20,16 @@ from .stylegan2 import SynthesisBlock
 class _SRBase(nn.Module):
     input_resolution: int
 
-    def forward(self, rgb, x, ws, noise_mode='random', generator=None):
+    def forward(self, rgb, x, ws, noise_mode='random', generator=None,
+                force_fp32=True):
         ws = ws[:, -1:, :].repeat(1, 3, 1)
         if x.shape[-1] != self.input_resolution:
             x = interpolate_bilinear(x, self.input_resolution,
                                      antialias=self.sr_antialias)
             rgb = interpolate_bilinear(rgb, self.input_resolution,
                                        antialias=self.sr_antialias)
-        kw = dict(noise_mode=noise_mode, generator=generator)
+        kw = dict(noise_mode=noise_mode, generator=generator,
+                  force_fp32=force_fp32)
         x, rgb = self.block0(x, rgb, ws, **kw)
         x, rgb = self.block1(x, rgb, ws, **kw)
         return rgb
@@ -40,16 +43,17 @@ class SuperresolutionHybrid8XDC(_SRBase):
         super().__init__()
         assert img_resolution == 512
         # the reference ties the conv clamp to its fp16 flag
-        clamp = 256 if sr_num_fp16_res > 0 else None
+        fp16 = sr_num_fp16_res > 0
+        clamp = 256 if fp16 else None
         self.input_resolution = 128
         self.sr_antialias = sr_antialias
         self.block0 = SynthesisBlock(channels, 256, w_dim=512, resolution=256,
                                      img_channels=3, conv_clamp=clamp,
-                                     generator=generator,
+                                     use_fp16=fp16, generator=generator,
                                      **block_kwargs)
         self.block1 = SynthesisBlock(256, 128, w_dim=512, resolution=512,
                                      img_channels=3, conv_clamp=clamp,
-                                     generator=generator,
+                                     use_fp16=fp16, generator=generator,
                                      **block_kwargs)
 
 
@@ -60,14 +64,15 @@ class SuperresolutionHybrid2X(_SRBase):
                  generator=None, **block_kwargs):
         super().__init__()
         assert img_resolution == 128
-        clamp = 256 if sr_num_fp16_res > 0 else None
+        fp16 = sr_num_fp16_res > 0
+        clamp = 256 if fp16 else None
         self.input_resolution = 64
         self.sr_antialias = sr_antialias
         self.block0 = SynthesisBlock(channels, 128, w_dim=512, resolution=64,
                                      img_channels=3, conv_clamp=clamp,
-                                     no_up=True,
+                                     use_fp16=fp16, no_up=True,
                                      generator=generator, **block_kwargs)
         self.block1 = SynthesisBlock(128, 64, w_dim=512, resolution=128,
                                      img_channels=3, conv_clamp=clamp,
-                                     generator=generator,
+                                     use_fp16=fp16, generator=generator,
                                      **block_kwargs)

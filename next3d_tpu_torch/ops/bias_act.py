@@ -2,7 +2,8 @@
 
 Counterpart of next3d_tpu/ops/bias_act.py (reference semantics:
 torch_utils/ops/bias_act.py:54-122). The elementwise chain stays eager
-torch: it is not one of the JAX package's Pallas kernels.
+torch: it is not one of the JAX package's Pallas kernels. It runs in x's
+dtype, the bias cast to it (JAX :54-59).
 """
 
 from __future__ import annotations
@@ -46,6 +47,9 @@ def bias_act(x, b=None, dim=1, act='linear', alpha=None, gain=None, clamp=None):
         x = x + b.to(x.dtype).reshape(shape)
     x = spec.func(x, alpha)
     if gain != 1:
+        if x.dtype in (torch.bfloat16, torch.float16):
+            # the JAX package multiplies by the gain rounded to x's dtype
+            gain = float(torch.tensor(gain, dtype=x.dtype))
         x = x * gain
     if clamp >= 0:
         x = x.clamp(-clamp, clamp)

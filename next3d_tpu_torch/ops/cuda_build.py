@@ -30,7 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     'triplane_sample': {
         entry: [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P]
-        for entry in ('triplane_sample', 'triplane_sample_backward')},
+        for entry in ('triplane_sample', 'triplane_sample_bf16',
+                      'triplane_sample_backward')},
     'raster_binned_uv': {
         entry: [_P] * 5 + [_I] * 4 + [_P]
         for entry in ('raster_binned_uv', 'raster_binned_uv16',

@@ -6,6 +6,13 @@ weighted gathers so that the mouth crop/paste window could stay dynamic
 under ``jit``; in eager torch the window is a slice and the resize is
 ``F.interpolate`` itself, which is what those functions are specified to
 equal.
+
+The crop and paste take bf16 images too (the flagship's mouth pipeline
+under ``force_fp32=False``). Torch's antialiased bilinear resize has no
+bf16 kernel on the CPU, so on every device the bf16 window is resized in
+float32 and the result rounded to bf16. The JAX package casts its resize
+weights to bf16 and rounds after each of its two passes (JAX :139,185);
+the port rounds once.
 """
 
 from __future__ import annotations
@@ -31,12 +38,18 @@ def interpolate_nearest(x, size):
     return F.interpolate(x, size=size, mode='nearest')
 
 
+def _resize_antialiased(x, size):
+    """Antialiased bilinear resize of (N, C, H, W) to ``size``, computed in
+    float32 and returned in x's dtype."""
+    return F.interpolate(x.float(), size=size, mode='bilinear',
+                         align_corners=False, antialias=True).to(x.dtype)
+
+
 def resample_region(src, start_y, start_x, size_y, size_x, out_h, out_w):
     """Antialiased bilinear resize of the window
     ``src[:, sy:sy+szy, sx:sx+szx]`` to (out_h, out_w); src: (C, H, W)."""
     crop = src[None, :, start_y:start_y + size_y, start_x:start_x + size_x]
-    return F.interpolate(crop, size=(out_h, out_w), mode='bilinear',
-                         align_corners=False, antialias=True)[0]
+    return _resize_antialiased(crop, (out_h, out_w))[0]
 
 
 def paste_resized_region(canvas, patch, start_y, start_x, size_y, size_x):
@@ -44,9 +57,7 @@ def paste_resized_region(canvas, patch, start_y, start_x, size_y, size_x):
     replaced by ``patch`` resized there (antialiased bilinear); canvas and
     patch are (C, H, W); a window reaching past the canvas is cut at its
     edge. Returns a new tensor."""
-    resized = F.interpolate(patch[None], size=(size_y, size_x),
-                            mode='bilinear', align_corners=False,
-                            antialias=True)[0]
+    resized = _resize_antialiased(patch[None], (size_y, size_x))[0]
     end_y = min(start_y + size_y, canvas.shape[1])
     end_x = min(start_x + size_x, canvas.shape[2])
     out = canvas.clone()

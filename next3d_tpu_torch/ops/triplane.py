@@ -13,6 +13,16 @@ launches the kernel in ``csrc/triplane_sample.cu`` for CUDA tensors (C = 32
 only; any other C raises) and runs the plain ``F.grid_sample`` version for
 CPU tensors, which stays differentiable in both arguments.
 
+Planes stored in bfloat16 (the renderer's ``gather_bf16`` option, JAX
+render/renderer.py:50-65) take the kernel's bf16 instance: the layout pass
+permutes and casts in one pass, the kernel reads 64 B a tap, and it
+computes the weights and the 4-tap sums in float32 and writes float32, as
+the plain version does on the planes upcast (``triplane_sample_plain``).
+The JAX package rounds each product and the sum in bf16 instead. Its
+launches are counted apart, in ``triplane_sample.launches_bf16``. The bf16
+instance has no backward: on the card, bf16 planes that require grad
+under grad mode raise.
+
 On the card, when grad mode is on and the planes require grad, the forward
 runs inside an autograd function whose backward is the second kernel of
 that file (``triplane_sample_backward``). It adds each tap's bilinear
@@ -61,16 +71,25 @@ def project_onto_planes(coordinates):
     return proj.reshape(N * 3, M, 3)[..., :2]
 
 
-def channels_last(planes):
-    """(N, 3, C, H, W) -> (N, 3, H, W, C) contiguous."""
-    return planes.permute(0, 1, 3, 4, 2).contiguous()
+def channels_last(planes, dtype=None):
+    """(N, 3, C, H, W) -> (N, 3, H, W, C) contiguous, in ``dtype`` (the
+    planes' own by default): one pass that permutes and casts. (A cast
+    after the permute would keep the permuted strides, and a
+    ``.contiguous()`` after it would be a second pass.)"""
+    permuted = planes.permute(0, 1, 3, 4, 2)
+    if dtype is None or dtype == planes.dtype:
+        return permuted.contiguous()
+    return torch.empty(permuted.shape, dtype=dtype,
+                       device=planes.device).copy_(permuted)
 
 
 def triplane_sample_plain(planes_cl, coordinates, box_warp):
-    """The plain torch version on any device."""
+    """The plain torch version on any device; float32 out, bf16 planes
+    upcast."""
     N, n_planes, H, W, C = planes_cl.shape
     M = coordinates.shape[1]
-    feats = planes_cl.permute(0, 1, 4, 2, 3).reshape(N * n_planes, C, H, W)
+    feats = planes_cl.float().permute(0, 1, 4, 2, 3).reshape(
+        N * n_planes, C, H, W)
     proj = project_onto_planes((2 / box_warp) * coordinates)
     out = F.grid_sample(feats, proj[:, None], mode='bilinear',
                         padding_mode='zeros', align_corners=False)
@@ -78,6 +97,10 @@ def triplane_sample_plain(planes_cl, coordinates, box_warp):
 
 
 C_KERNEL = 32  # the channel count the kernel is instantiated for
+# the planes' storage types the kernel is instantiated for: C entry point
+# and launch counter of each
+INSTANCES = {torch.float32: ('triplane_sample', 'launches'),
+             torch.bfloat16: ('triplane_sample_bf16', 'launches_bf16')}
 
 
 def _sample_cuda(planes_cl, coordinates, box_warp):
@@ -88,21 +111,26 @@ def _sample_cuda(planes_cl, coordinates, box_warp):
                          f'{tuple(coordinates.shape)} do not match')
     if C != C_KERNEL:
         raise ValueError(f'the kernel takes {C_KERNEL} channels, not {C}')
-    for name, t in (('planes', planes_cl), ('coordinates', coordinates)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
+    if planes_cl.dtype not in INSTANCES:
+        raise ValueError(f'the kernel takes float32 or bfloat16 planes, not '
+                         f'{planes_cl.dtype}')
+    for name, t, dtype in (('planes', planes_cl, planes_cl.dtype),
+                           ('coordinates', coordinates, torch.float32)):
+        if t.dtype != dtype or not t.is_contiguous() \
                 or t.device != planes_cl.device:
-            raise ValueError(f'{name} must be contiguous float32 on '
+            raise ValueError(f'{name} must be contiguous {dtype} on '
                              f'{planes_cl.device}')
     if planes_cl.data_ptr() % 16:
         raise ValueError('planes must be 16-byte aligned')
     if max(planes_cl.numel(), N * 3 * M * C) >= 2 ** 31:
         raise ValueError('the kernel indexes in 32 bits')
+    entry, counter = INSTANCES[planes_cl.dtype]
     out = torch.empty((N, 3, M, C), dtype=torch.float32,
                       device=planes_cl.device)
-    cuda_build.launch('triplane_sample', 'triplane_sample', planes_cl.device,
+    cuda_build.launch('triplane_sample', entry, planes_cl.device,
                       planes_cl.data_ptr(), coordinates.data_ptr(),
                       out.data_ptr(), N, M, H, W, C, 2.0 / box_warp)
-    triplane_sample.launches += 1
+    setattr(triplane_sample, counter, getattr(triplane_sample, counter) + 1)
     return out
 
 
@@ -274,9 +302,15 @@ def triplane_sample(planes_cl, coordinates, box_warp):
             'fault: detach them, or use CPU tensors, whose F.grid_sample '
             'path is differentiable in both arguments')
     if torch.is_grad_enabled() and planes_cl.requires_grad:
+        if planes_cl.dtype != torch.float32:
+            raise RuntimeError(
+                f'K4 on the card has a backward for float32 planes only, '
+                f'not {planes_cl.dtype}: sample float32 planes, disable '
+                f'grad mode, or use CPU tensors')
         return _SampleWithBackward.apply(planes_cl, coordinates, box_warp)
     return _sample_cuda(planes_cl, coordinates, box_warp)
 
 
 triplane_sample.launches = 0
+triplane_sample.launches_bf16 = 0
 triplane_sample_backward.launches = 0

@@ -9,7 +9,9 @@ path that the JAX package takes with ``rng=None``.
 
 Tri-plane sampling is kernel K4 (``ops/triplane.py``, which also holds
 ``generate_planes`` and ``project_onto_planes``): the planes are laid out
-channels-last once per forward and both passes sample them.
+channels-last once per forward and both passes sample them. With the
+``gather_bf16`` option the layout pass stores float32 planes in bf16 (JAX
+:50-65, 261); the samples come back float32.
 """
 
 from __future__ import annotations
@@ -22,10 +24,19 @@ from . import math_utils
 from .ray_marcher import mip_ray_marcher2
 
 
-def sample_from_planes(plane_features, coordinates, box_warp):
-    """(N, 3, C, H, W), (N, M, 3) -> (N, 3, M, C) (reference :62-72)."""
-    return triplane_sample(channels_last(plane_features), coordinates,
-                           box_warp)
+def layout_planes(planes, gather_bf16=False):
+    """planes (N, 3, C, H, W) as K4 reads them: channels-last, float32
+    planes stored in bf16 with ``gather_bf16``."""
+    bf16 = gather_bf16 and planes.dtype == torch.float32
+    return channels_last(planes, torch.bfloat16 if bf16 else None)
+
+
+def sample_from_planes(plane_features, coordinates, box_warp,
+                       gather_bf16=False):
+    """(N, 3, C, H, W), (N, M, 3) -> (N, 3, M, C) float32 (reference
+    :62-72)."""
+    return triplane_sample(layout_planes(plane_features, gather_bf16),
+                           coordinates, box_warp)
 
 
 def _uniform(generator, shape, device):
@@ -147,7 +158,7 @@ class ImportanceRenderer:
         """planes (N, 3, C, H, W) -> (rgb (N, R, C), depth (N, R, 1),
         weight_sum (N, R, 1))."""
         opts = rendering_options
-        planes_cl = channels_last(planes)
+        planes_cl = layout_planes(planes, opts.get('gather_bf16', False))
         if opts['ray_start'] == opts['ray_end'] == 'auto':
             ray_start, ray_end = math_utils.get_ray_limits_box(
                 ray_origins, ray_directions, box_side_length=opts['box_warp'])

@@ -16,7 +16,9 @@ the binned kernels' CUDA prep gives the torch prep's segment starts exactly
 and, once each segment is sorted by face id, its slab bit for bit
 (csrc/raster_binned_prep.cu), and K5's CUDA prep its face rows and stripe
 starts on the kept faces (csrc/raster_zbuffer.cu); K4 within 1e-5 (its
-unnormalization rounds in another order than F.grid_sample), and K4's
+unnormalization rounds in another order than F.grid_sample), its bf16-plane
+instance too (it sums in float32, as the plain version on the upcast
+planes does), and K4's
 backward within 1e-5 of the largest gradient of its plain version and of
 grid_sampler_2d_backward, both adding in float64 (its atomics add in no
 fixed order); the slices within the fp32 parity gate of ROADMAP.md (max-abs
@@ -467,6 +469,53 @@ def test_k4_kernel_rejects_other_channel_counts(device):
     planes = channels_last(torch.zeros(1, 3, 16, 8, 8, device=device))
     with pytest.raises(ValueError, match='32 channels'):
         triplane_sample(planes, torch.zeros(1, 5, 3, device=device), 1.0)
+
+
+@pytest.mark.parametrize('case', ['render', 'ragged'])
+def test_k4_bf16_instance_matches_plain(device, case):
+    """K4's bf16-plane instance (the gather_bf16 path) against its plain
+    version, F.grid_sample on the same planes upcast, within 1e-5 (both sum
+    in float32), at the render's coarse points and at a ragged count with
+    points far out of the box; it counts its launches apart."""
+    g = torch.Generator(device=device).manual_seed(5)
+    if case == 'render':
+        raw = torch.randn(2, 3, 32, 256, 256, generator=g, device=device)
+        c = _camera(2, device, 0.3)
+        ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
+                             c[:, 16:25].reshape(-1, 3, 3), 32)
+        depths = sample_stratified(None, ro, 2.25, 3.3, 48)
+        coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(2, -1, 3)
+    else:
+        raw = torch.randn(1, 3, 32, 64, 48, generator=g, device=device)
+        coords = torch.rand(1, 4099, 3, generator=g, device=device) - 0.5
+        coords[:, ::7] *= 1e4
+    planes = channels_last(raw, torch.bfloat16)
+    assert planes.dtype == torch.bfloat16 and planes.is_contiguous()
+    assert torch.equal(planes, raw.permute(0, 1, 3, 4, 2).to(torch.bfloat16))
+    before = (triplane_sample.launches, triplane_sample.launches_bf16)
+    got = triplane_sample(planes, coords, 1.0)
+    want = triplane_sample_plain(planes, coords, 1.0)
+    torch.cuda.synchronize()
+    assert (triplane_sample.launches, triplane_sample.launches_bf16) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_k4_bf16_instance_raises_under_grad_mode(device):
+    """The bf16 instance has no backward: bf16 planes that require grad
+    raise under grad mode, and run under no_grad; other storage types
+    raise."""
+    planes = channels_last(torch.randn(1, 3, 32, 16, 16, device=device),
+                           torch.bfloat16)
+    coords = torch.rand(1, 100, 3, device=device) - 0.5
+    with pytest.raises(RuntimeError, match='float32 planes only'):
+        triplane_sample(planes.clone().requires_grad_(), coords, 1.0)
+    with torch.no_grad():
+        out = triplane_sample(planes.clone().requires_grad_(), coords, 1.0)
+    assert out.dtype == torch.float32 and not out.requires_grad
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        triplane_sample(planes.half(), coords, 1.0)
 
 
 @pytest.mark.parametrize('model', ['flagship', 'texture'])
