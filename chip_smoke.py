@@ -110,7 +110,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      identity-cached reenact path (synthesis_from_identity) over 16
      jittered frames in fp32 and bf16, f/s, the bf16 frame 0 against the
      bf16 synthesis within 1e-4 under deterministic cuDNN. It ends with a
-     {"bf16": ...} line.
+     {"bf16": ...} line;
+ 15. the train command's other configurations, at phase 13's config on its
+     dataset: the augment pipe of ``--aug`` (train/augment.py, the
+     reference's blit, geometric and colour transforms) at the 512^2 Dmain
+     input (batch 4, 6 channels, p=0.6) on the card against the CPU on the
+     same draws (within PIPE_TOL), timed with its draws, alone and with its
+     gradient; the texture variant's first Gmain loss (the command's
+     networks at their seed, constant noise, batch 1) on the card against
+     the CPU (within TEXTURE_GMAIN_TOL); then in-process (a) ``train
+     --model-version texture --aug ada``, batch 4, 17 batches (Greg, Dreg
+     and the EMA run, the ADA controller moves p at 4 batches), which must
+     launch K2, K4 and K4's backward and not K1, and (b) ``train
+     --dataset-type video --num-frames-per-video 2`` on the flagship, 2
+     clips of 2 frames a batch, 6 batches, on 2 clips of 4 of phase 13's
+     frames, which must launch K1, K4 and K4's backward. Each run fails on
+     a stat that is not finite or a phase that did not run, and logs its
+     last tick's img/s (frames/s for clips), ms a phase (the first batch
+     and the last tick), peak memory, launches and ada_p, beside the card's
+     name and power limit. It ends with a {"train_variants": ...} line.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -153,8 +171,10 @@ archive`` of the parent commit unpacked into ``build/parent`` (git-ignored).
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
 the in-repo synthetic head. The run uses no JAX. It ends with a
-{"train": ...} line, a {"bf16": ...} line, the card line, a JSON object
-with one entry per kernel and the result line {"ok": true, "device":
+{"train": ...} line, a {"bf16": ...} line, a {"train_variants": ...}
+line, the card line, a JSON object with one entry per kernel (K1, K2, K4
+and K4's backward with their training launches: phase 13's, and for K2
+phase 15's texture run) and the result line {"ok": true, "device":
 {...}}.
 """
 
@@ -1221,119 +1241,279 @@ def profile_phases(opts, dataset_path, device, phases=('Gmain', 'Greg',
     del G, D, G_ema, loss, step
 
 
-def check_training(G, mesh, lms, device, card, kernels, profile=False):
-    """Phase 13: the train command on the card at the 512^2 FFHQ config,
-    batch 4, on a toy dataset in a temporary directory: 8 of ``G``'s
-    images written as PNGs, with the head's .obj and landmarks per item
-    and FFHQ camera labels. 17 batches (batch 0 runs Gmain, Greg, Dmain and
-    Dreg, batch 16 Dreg again, warm), a snapshot, then a resume from it for
-    one more tick. Returns the K1, K4 and K4 backward launches of the first
-    run and its summary."""
+def write_train_data(G, mesh, lms, device, root):
+    """Phase 13's toy dataset in ``root``: 8 of ``G``'s images written as
+    PNGs, with the head's .obj and landmarks per item and FFHQ camera
+    labels, and the head as ``head.obj``. Returns a dict of the paths and
+    the arrays (phase 15 builds its clips from them)."""
     import numpy as np
-    from next3d_tpu_torch.cli import main as cli
-    from next3d_tpu_torch.cli.common import (camera_label, frame_uint8,
-                                             load_generator)
-    from next3d_tpu_torch.cli.train import build_training
+    from next3d_tpu_torch.cli.common import camera_label, frame_uint8
     from next3d_tpu_torch.utils.synthetic_head import save_dataset, save_head
 
-    tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
-    try:
-        labels = np.concatenate([camera_label(0.1 * (i - 3.5), 0.02 * i)
-                                 for i in range(8)])
-        v = head_batch(mesh, lms, 8, device, jitter=0.003)
-        g = torch.Generator(device=device).manual_seed(SEED + 2)
-        z = torch.randn(8, 512, generator=g, device=device)
-        images = []
+    labels = np.concatenate([camera_label(0.1 * (i - 3.5), 0.02 * i)
+                             for i in range(8)])
+    v = head_batch(mesh, lms, 8, device, jitter=0.003)
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    z = torch.randn(8, 512, generator=g, device=device)
+    images = []
+    with torch.no_grad():
+        for i in (0, 4):
+            c = torch.from_numpy(labels[i:i + 4]).to(device)
+            out = G(z[i:i + 4], c, v[i:i + 4], truncation_psi=0.7,
+                    truncation_cutoff=14, noise_mode='const')
+            images += [frame_uint8(im) for im in out['image']]
+    data = save_dataset(os.path.join(root, 'data'), images, v.cpu().numpy(),
+                        labels, mesh)
+    obj, _ = save_head(os.path.join(root, 'head.obj'), mesh, lms)
+    return dict(root=root, data=data, obj=obj, labels=labels, v=v, z=z,
+                images=images)
+
+
+def check_training(files, device, card, kernels, profile=False):
+    """Phase 13: the train command on the card at the 512^2 FFHQ config,
+    batch 4, on the toy dataset of ``write_train_data``. 17 batches (batch
+    0 runs Gmain, Greg, Dmain and Dreg, batch 16 Dreg again, warm), a
+    snapshot, then a resume from it for one more tick. Returns the K1, K4
+    and K4 backward launches of the first run and its summary."""
+    from next3d_tpu_torch.cli import main as cli
+    from next3d_tpu_torch.cli.common import load_generator
+    from next3d_tpu_torch.cli.train import build_training
+
+    tmp, data, obj = files['root'], files['data'], files['obj']
+    labels, v, z = files['labels'], files['v'], files['z']
+    run1, run2 = os.path.join(tmp, 'run1'), os.path.join(tmp, 'run2')
+
+    def argv(outdir, kimg, *extra):
+        return ['train', '--outdir', outdir, '--data', data, '--batch',
+                '4', '--kimg', str(kimg), '--tick', '0.036', '--snap',
+                '100', '--topology-path', obj, '--device', str(device),
+                '--timing-every', '1', *extra]
+
+    parser = cli.build_parser()
+    opts = vars(parser.parse_args(argv(run1, 0.068)))
+    opts.pop('command')
+    opts.pop('device')
+    init = {name: {k: t.clone() for k, t in m.state_dict().items()}
+            for name, m in zip(('G', 'D', 'G_ema'),
+                               build_training(opts, 'cpu')[:3])}
+
+    summary, result = train_run(
+        'train, 17 batches of 4 at 512^2 (FFHQ, 48+48 samples, nrr 64)',
+        argv(run1, 0.068), kernels, card, expect=('K1', 'K4', 'K4b'))
+    launches = {k: summary['launches'][k] for k in ('K1', 'K4', 'K4b')}
+
+    for name in ('G', 'D', 'G_ema'):
+        moved = max(float((t.detach().cpu() - init[name][k]).abs().max())
+                    for k, t in result[name].state_dict().items())
+        log(f'{name}: largest change of a parameter {moved:.3g}')
+        if not moved > 0:
+            raise RuntimeError(f'{name} did not move')
+    snap = os.path.join(run1, 'network-snapshot-000000.pkl')
+    loaded = load_generator(snap, obj, device)
+    with torch.no_grad():
+        out = loaded(z[:1], torch.from_numpy(labels[:1]).to(device),
+                     v[:1], noise_mode='const')
+    check_outputs(out, 1)
+    log('the snapshot loads into TriPlaneGenerator: finite images')
+    del result, loaded, init
+
+    resumed = cli.run(argv(run2, 0.072, '--resume', snap))
+    ticks = [(r['tick'], r['kimg']) for r in resumed['ticks']]
+    log(f'resumed from the snapshot: cur_nimg {resumed["cur_nimg"]}, '
+        f'ticks {ticks}')
+    if resumed['cur_nimg'] != 72 or ticks != [(2, 0.072)]:
+        raise RuntimeError('the resumed run did not continue cur_nimg')
+    del resumed
+    if profile:
+        profile_phases(opts, data, device)
+    return launches, summary
+
+
+# the pipe on the card against its CPU run on the same draws, max-abs on
+# images in [-1, 1] after the colour transforms (values up to about 8):
+# cuDNN's and the CPU's depthwise filters and grid_sample round apart by
+# about 1e-6, the 1024-px 2x image's coordinates by about 6e-5 px
+PIPE_TOL = 1e-3
+# the texture variant's first Gmain loss, card against CPU, relative
+TEXTURE_GMAIN_TOL = 1e-3
+
+
+def check_pipe(files, device, card):
+    """Phase 15: the augment pipe at the 512^2 Dmain input (batch 4, the
+    image beside its upsampled raw image: 6 channels, here phase 13's
+    images twice) on the card against the CPU on the same draws (p=0.6,
+    drawn on the CPU), within PIPE_TOL; its time on the card, draws
+    included, forward and forward + backward."""
+    import numpy as np
+    from next3d_tpu_torch.cli.train import PIPE_KWARGS
+    from next3d_tpu_torch.train.augment import AugmentPipe
+
+    pipe = AugmentPipe(**PIPE_KWARGS)
+    img = torch.from_numpy(np.stack(files['images'][:4])).permute(
+        0, 3, 1, 2).float() / 127.5 - 1
+    x = torch.cat([img, img.flip(3)], 1).contiguous()
+    draws = pipe.draw(x.shape, 0.6, torch.Generator().manual_seed(SEED),
+                      'cpu')
+    want = pipe.apply(x, draws)
+    got = pipe.apply(x.to(device), {k: v.to(device) for k, v in
+                                     draws.items()}).cpu()
+    err = float((got - want).abs().max())
+    xd = x.to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ms = time_ms(lambda: pipe(xd, 0.6, gen))
+    xg = xd.clone().requires_grad_()
+    ms_grad = time_ms(lambda: torch.autograd.grad(
+        pipe(xg, 0.6, gen).square().sum(), xg))
+    log(f'augment pipe (train config, p=0.6), batch 4 x 6 x 512^2: card vs '
+        f'CPU on the same draws max-abs {err:.3g} (of '
+        f'{float(want.abs().max()):.3g}; tolerance {PIPE_TOL}); '
+        f'{ms:.3f} ms a call with its draws, {ms_grad:.3f} ms with the '
+        f'gradient, on {card}')
+    if not err <= PIPE_TOL:
+        raise RuntimeError('the augment pipe disagrees between card and '
+                           'CPU')
+    return dict(max_abs_err=err, ms=ms, ms_with_gradient=ms_grad)
+
+
+def check_texture_gmain(opts, files, device):
+    """Phase 15: the texture variant's first Gmain loss (the train
+    command's networks at their seed, constant noise and midpoint depths,
+    batch 1) on the card against the CPU, within TEXTURE_GMAIN_TOL."""
+    import copy
+    from next3d_tpu_torch.cli.train import build_training
+    from next3d_tpu_torch.train.loss import StyleGAN2Loss
+
+    G, D, _, loss, _, _, _ = build_training(opts, 'cpu')
+    values = {}
+    for dev in ('cpu', device):
+        Gx, Dx = (copy.deepcopy(m).to(dev) for m in (G, D))
+        lx = StyleGAN2Loss(Gx, Dx, loss.cfg, deterministic=True)
+        sched, nrr = lx.schedules(0)
+        batch = {'gen_z': files['z'][:1].to(dev),
+                 'gen_c': torch.from_numpy(files['labels'][:1]).to(dev),
+                 'gen_v': files['v'][:1].to(dev)}
         with torch.no_grad():
-            for i in (0, 4):
-                c = torch.from_numpy(labels[i:i + 4]).to(device)
-                out = G(z[i:i + 4], c, v[i:i + 4], truncation_psi=0.7,
-                        truncation_cutoff=14, noise_mode='const')
-                images += [frame_uint8(im) for im in out['image']]
-        data = save_dataset(os.path.join(tmp, 'data'), images,
-                            v.cpu().numpy(), labels, mesh)
-        obj, _ = save_head(os.path.join(tmp, 'head.obj'), mesh, lms)
-        run1, run2 = os.path.join(tmp, 'run1'), os.path.join(tmp, 'run2')
+            value, _, _ = lx.gmain_loss(batch, None, sched, nrr)
+        values[str(dev)] = float(value)
+        del Gx, Dx, lx
+    cpu, card = values['cpu'], values[str(device)]
+    rel = abs(card - cpu) / abs(cpu)
+    log(f'texture variant Gmain loss, batch 1: card {card:.7g}, CPU '
+        f'{cpu:.7g}, relative {rel:.3g} (tolerance {TEXTURE_GMAIN_TOL})')
+    if not rel <= TEXTURE_GMAIN_TOL:
+        raise RuntimeError('the texture variant\'s Gmain disagrees between '
+                           'card and CPU')
+    return dict(card=card, cpu=cpu, relative=rel)
 
-        def argv(outdir, kimg, *extra):
-            return ['train', '--outdir', outdir, '--data', data, '--batch',
-                    '4', '--kimg', str(kimg), '--tick', '0.036', '--snap',
-                    '100', '--topology-path', obj, '--device', str(device),
-                    '--timing-every', '1', *extra]
 
-        parser = cli.build_parser()
-        opts = vars(parser.parse_args(argv(run1, 0.068)))
-        opts.pop('command')
-        opts.pop('device')
-        init = {name: {k: t.clone() for k, t in m.state_dict().items()}
-                for name, m in zip(('G', 'D', 'G_ema'),
-                                   build_training(opts, 'cpu')[:3])}
+def train_run(name, argv, kernels, card, frames=1, expect=()):
+    """One in-process run of the train command: its launches, finite
+    stats, every phase run, the kernels of ``expect`` launched; logs and
+    returns img/s (frames/s for clips) over the last tick, ms a phase (the
+    first batch and the last tick's mean), peak memory and ada_p, with the
+    command's result."""
+    from next3d_tpu_torch.cli import main as cli
 
-        torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.time()
-        result, counts = counted(lambda: cli.run(argv(run1, 0.068)), kernels)
-        seconds = time.time() - t0
-        peak_gb = torch.cuda.max_memory_allocated(device) / 2 ** 30
-        launches = {k: counts[k] for k in ('K1', 'K4', 'K4b')}
-        log(f'train, 17 batches of 4 at 512^2 (FFHQ, 48+48 samples, nrr '
-            f'64): {seconds:.1f} s with its set-up; launches {counts}')
-        for r in result['ticks']:
-            bad = [k for k, x in r.items() if isinstance(x, float)
-                   and not math.isfinite(x)]
-            if bad:
-                raise RuntimeError(f'tick {r["tick"]}: not finite: {bad}')
-        phases = ('Gmain', 'Greg', 'Dmain', 'Dreg', 'G_ema')
-        first, warm = result['ticks'][0], result['ticks'][-1]
-        missing = [p for p in phases if f'Timing/{p}' not in first]
-        if missing or min(launches.values()) <= 0:
-            raise RuntimeError(f'phases {missing} did not run, or launches '
-                               f'{launches}')
-        summary = dict(
-            seconds=seconds, peak_device_mem_gb=peak_gb,
-            images_per_second=warm['images_per_second'],
-            phase_ms_first_batch={p: 1e3 * first[f'Timing/{p}']
-                                  for p in phases},
-            phase_ms_warm={p: 1e3 * warm[f'Timing/{p}'] for p in phases
-                           if f'Timing/{p}' in warm},
-            losses={k: warm[k] for k in warm if k.startswith('Loss/')
-                    or k.startswith('Grad/')})
-        log(f'train tick 1 (batches 9-16, warm): '
-            f'{summary["images_per_second"]:.3f} img/s; ms a phase '
-            f'{ {k: round(x, 2) for k, x in summary["phase_ms_warm"].items()} }'
-            f'; batch 0 (cold) '
-            f'{ {k: round(x, 2) for k, x in summary["phase_ms_first_batch"].items()} }'
-            f'; peak device memory {peak_gb:.2f} GiB (max_memory_allocated)'
-            f', on {card}')
-        log(f'train losses and gradient norms, tick 1: '
-            f'{ {k: round(x, 5) for k, x in summary["losses"].items()} }')
+    device = torch.device('cuda', 0)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    result, counts = counted(lambda: cli.run(argv), kernels)
+    seconds = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    for r in result['ticks']:
+        bad = [k for k, x in r.items() if isinstance(x, float)
+               and not math.isfinite(x)]
+        if bad:
+            raise RuntimeError(f'{name}, tick {r["tick"]}: not finite: '
+                               f'{bad}')
+    phases = ('Gmain', 'Greg', 'Dmain', 'Dreg', 'G_ema')
+    first, warm = result['ticks'][0], result['ticks'][-1]
+    missing = [p for p in phases if f'Timing/{p}' not in first]
+    idle = [k for k in expect if counts[k] <= 0]
+    if missing or idle:
+        raise RuntimeError(f'{name}: phases {missing} did not run, or '
+                           f'kernels {idle} never launched ({counts})')
+    summary = dict(
+        seconds=seconds, peak_device_mem_gb=peak_gb,
+        images_per_second=warm['images_per_second'] * frames,
+        phase_ms_first_batch={p: 1e3 * first[f'Timing/{p}']
+                              for p in phases},
+        phase_ms_warm={p: 1e3 * warm[f'Timing/{p}'] for p in phases
+                       if f'Timing/{p}' in warm},
+        launches={k: counts[k] for k in ('K1', 'K2', 'K4', 'K4b')},
+        ada_p=result['ada_p'],
+        augment_p_by_tick=[r['Progress/augment'] for r in result['ticks']],
+        losses={k: warm[k] for k in warm if k.startswith('Loss/')
+                or k.startswith('Grad/')})
+    rounded = {key: {k: round(x, 2) for k, x in summary[key].items()}
+               for key in ('phase_ms_warm', 'phase_ms_first_batch')}
+    log(f'{name}: {seconds:.1f} s with its set-up; last tick '
+        f'{summary["images_per_second"]:.3f} '
+        f'{"frames" if frames > 1 else "img"}/s; ms a phase '
+        f'{rounded["phase_ms_warm"]}; batch 0 (cold) '
+        f'{rounded["phase_ms_first_batch"]}; peak device memory '
+        f'{peak_gb:.2f} GiB (max_memory_allocated); '
+        f'launches {counts}; ada_p {summary["ada_p"]:.6g}; on {card}')
+    log(f'{name}: losses and gradient norms, last tick '
+        f'{ {k: round(x, 5) for k, x in summary["losses"].items()} }')
+    return summary, result
 
-        for name in ('G', 'D', 'G_ema'):
-            moved = max(float((t.detach().cpu() - init[name][k]).abs().max())
-                        for k, t in result[name].state_dict().items())
-            log(f'{name}: largest change of a parameter {moved:.3g}')
-            if not moved > 0:
-                raise RuntimeError(f'{name} did not move')
-        snap = os.path.join(run1, 'network-snapshot-000000.pkl')
-        loaded = load_generator(snap, obj, device)
-        with torch.no_grad():
-            out = loaded(z[:1], torch.from_numpy(labels[:1]).to(device),
-                         v[:1], noise_mode='const')
-        check_outputs(out, 1)
-        log('the snapshot loads into TriPlaneGenerator: finite images')
-        del result, loaded, init
 
-        resumed = cli.run(argv(run2, 0.072, '--resume', snap))
-        ticks = [(r['tick'], r['kimg']) for r in resumed['ticks']]
-        log(f'resumed from the snapshot: cur_nimg {resumed["cur_nimg"]}, '
-            f'ticks {ticks}')
-        if resumed['cur_nimg'] != 72 or ticks != [(2, 0.072)]:
-            raise RuntimeError('the resumed run did not continue cur_nimg')
-        del resumed
-        if profile:
-            profile_phases(opts, data, device)
-        return launches, summary
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def check_training_variants(files, mesh, device, card, kernels):
+    """Phase 15: the train command's other configurations at phase 13's
+    512^2 FFHQ config on its dataset: the augment pipe card against CPU,
+    the texture variant's first Gmain loss card against CPU, then (a)
+    ``--model-version texture --aug ada``, batch 4, 17 batches (Greg at
+    batches 0, 4, 8, 12 and 16, Dreg at 0 and 16, the ADA controller moving
+    at batches 4, 8, 12 and 16), and (b) ``--dataset-type video
+    --num-frames-per-video 2`` on the flagship, 2 clips (4 frames) a batch,
+    6 batches, on 2 clips of 4 of phase 13's frames each. Returns K2's
+    launches in (a) and the phase's summary."""
+    import numpy as np
+    from next3d_tpu_torch.cli import main as cli
+    from next3d_tpu_torch.utils.synthetic_head import save_clip_dataset
+
+    root = files['root']
+    pipe = check_pipe(files, device, card)
+
+    def argv(outdir, data, batch, kimg, tick, *extra):
+        return ['train', '--outdir', os.path.join(root, outdir), '--data',
+                data, '--batch', str(batch), '--kimg', str(kimg), '--tick',
+                str(tick), '--snap', '100', '--topology-path', files['obj'],
+                '--device', str(device), '--timing-every', '1', *extra]
+
+    texture = argv('texture_ada', files['data'], 4, 0.068, 0.036,
+                   '--model-version', 'texture', '--aug', 'ada')
+    opts = vars(cli.build_parser().parse_args(texture))
+    opts.pop('command')
+    opts.pop('device')
+    gmain = check_texture_gmain(opts, files, device)
+    # the same run without the pipe, for the pipe's share of a batch
+    plain, _ = train_run('train --model-version texture, 17 batches of 4 '
+                         'at 512^2', texture[:-2], kernels, card,
+                         expect=('K2', 'K4', 'K4b'))
+    a, _ = train_run('train --model-version texture --aug ada, 17 batches '
+                     'of 4 at 512^2', texture, kernels, card,
+                     expect=('K2', 'K4', 'K4b'))
+    if a['launches']['K1'] != 0 or plain['launches']['K1'] != 0:
+        raise RuntimeError('the texture variant launched K1')
+    log(f'the augment pipe\'s share of a texture batch (last tick): '
+        f'{1 - a["images_per_second"] / plain["images_per_second"]:.3f} '
+        f'({plain["images_per_second"]:.3f} img/s without it, '
+        f'{a["images_per_second"]:.3f} with it) on {card}')
+
+    images = np.stack(files['images'])
+    v = files['v'].cpu().numpy()
+    clips = save_clip_dataset(os.path.join(root, 'clips'), [
+        (images[i:i + 4], v[i:i + 4], files['labels'][i:i + 4])
+        for i in (0, 4)], mesh)
+    b, _ = train_run('train --dataset-type video --num-frames-per-video 2 '
+                     '(flagship), 6 batches of 2 clips of 2 frames at 512^2',
+                     argv('video', clips, 2, 0.012, 0.006, '--dataset-type',
+                          'video', '--num-frames-per-video', '2'),
+                     kernels, card, frames=2, expect=('K1', 'K4', 'K4b'))
+    return a['launches']['K2'], dict(pipe=pipe, texture_gmain=gmain,
+                                     texture=plain, texture_ada=a, video=b)
 
 
 class LaunchCount:
@@ -1759,18 +1939,26 @@ def main():
         cli_launches = check_clis(G, G_KWARGS, mesh, head_lms, device, card,
                                   kernels, ref, spread, (z[4], c[4], v[4]))
 
-    train_launches, train = check_training(G, mesh, head_lms, device, card,
-                                           kernels, profile=opts.profile)
-    launches['K4b'] = train_launches['K4b']
+    train_tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
+    try:
+        files = write_train_data(G, mesh, head_lms, device, train_tmp)
+        train_launches, train = check_training(files, device, card, kernels,
+                                               profile=opts.profile)
+        launches['K4b'] = train_launches['K4b']
 
-    with torch.no_grad():
-        # bench.py's default batch, for phase 14's flagship
-        z[8] = torch.randn(8, 512, generator=g, device=device)
-        c[8] = ffhq_camera(8, device)
-        v[8] = head_batch(mesh, head_lms, 8, device)
-        stats['K4bf16'], launches['K4bf16'], bf16 = check_bf16_serving(
-            build, forward_of, models, card, kernels, (z, c, v), fp32_outs,
-            mesh, head_lms, device)
+        with torch.no_grad():
+            # bench.py's default batch, for phase 14's flagship
+            z[8] = torch.randn(8, 512, generator=g, device=device)
+            c[8] = ffhq_camera(8, device)
+            v[8] = head_batch(mesh, head_lms, 8, device)
+            stats['K4bf16'], launches['K4bf16'], bf16 = check_bf16_serving(
+                build, forward_of, models, card, kernels, (z, c, v),
+                fp32_outs, mesh, head_lms, device)
+        del models, fp32_outs, outs, outs_t, T
+        train_launches['K2'], variants = check_training_variants(
+            files, mesh, device, card, kernels)
+    finally:
+        shutil.rmtree(train_tmp, ignore_errors=True)
 
     names = {
         'K1': ('rasterize_binned_uv', 'raster_binned_uv.cu',
@@ -1803,9 +1991,10 @@ def main():
         if k in ('K1', 'K4'):
             entry['cli_launches'] = {cmd: n[k] for cmd, n in
                                      cli_launches.items()}
-        if k in ('K1', 'K4', 'K4b'):
+        if k in ('K1', 'K2', 'K4', 'K4b'):
             entry['train_launches'] = train_launches[k]
     log(json.dumps({'train': train}))
+    log(json.dumps({'train_variants': variants}))
     log(json.dumps({'bf16': bf16}))
     log(card)
     log(json.dumps({'kernels': line}))

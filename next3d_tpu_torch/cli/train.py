@@ -9,16 +9,23 @@ half-life batch * 10 / 32 kimg, a grid of reals and of G_ema's fakes, plus
 ``--device`` (default ``cuda``) and ``--timing-every``. ``--kimg`` and
 ``--tick`` take fractions of a kimg too, for short runs.
 
-Float32 without TF32 throughout, as the JAX package trains at float32.
-A resumed run is an exact continuation of a port snapshot, so the
-reference's resume-time changes of the schedules (train_next3d.py:394-401,
-meant for warm starts from a reference .pkl, which are not ported) are not
-applied.
+As the JAX command: ``--model-version texture`` trains
+``TriPlaneTextureGenerator``; ``--aug ada|fixed`` puts the reference's
+augment pipe (blit, geometric and colour transforms) in front of D, its
+probability adapted towards ``--target`` from 0 (ada) or fixed at ``--p``;
+``--dataset-type video --num-frames-per-video T`` trains on clips of T
+frames, D seeing a clip's frames as 3*T channels and its labels as 25*T;
+``--gen-exp-cond`` gives D a second label mapping for a 50-wide
+expression label (``DualLabelDualDiscriminator``), so the dataset's labels
+are 75 wide. A ``--resume`` changes the schedules as JAX's does
+(reference train_next3d.py:394-401): ADA reacts over 100 kimg instead of
+500, the EMA has no ramp-up and, unless ``--resume-blur``, the blur and
+the conditioning-swap fades are off.
 
-Not ported yet, and raising when asked for (ROADMAP.md Queue 1 item 5):
-the texture variant's and video training, the dual-label discriminator
-(``--gen-exp-cond``), augmentation (``--aug`` other than noaug), metrics,
-and more than one device (``--gpus``).
+Float32 without TF32 throughout, as the JAX package trains at float32.
+
+Not ported yet, and raising when asked for (ROADMAP.md Queue 1): metrics
+(``--metrics``) and more than one device (``--gpus``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,12 @@ import numpy as np
 import torch
 
 from .common import CFG_RENDERING_BLOCKS, DEMO_OBJ, FFHQ_RENDERING_KWARGS
+
+
+# the augment pipe of --aug ada|fixed (reference train_next3d.py:388)
+PIPE_KWARGS = dict(xflip=1, rotate90=1, xint=1, scale=1, rotate=1, aniso=1,
+                   xfrac=1, brightness=1, contrast=1, lumaflip=1, hue=1,
+                   saturation=1)
 
 
 def choose_sr_module(resolution):
@@ -111,12 +124,6 @@ def add_options(p, bool_type):
 
 def _unported(opts):
     for asked, what in (
-            (opts['model_version'] != 'next3d', 'training the texture '
-             'variant (--model-version texture)'),
-            (opts['dataset_type'] != 'image', 'video training'),
-            (opts['gen_exp_cond'], 'the dual-label discriminator '
-             '(--gen-exp-cond)'),
-            (opts['aug'] != 'noaug', 'augmentation (--aug)'),
             (opts['metrics'] not in (None, '', 'none', 'None'),
              'in-training metrics (--metrics)'),
             ((opts['num_devices'] or 1) > 1, 'training on more than one '
@@ -132,7 +139,10 @@ def build_training(opts, device):
     ``train``, the networks initialized from ``seed`` on the CPU and moved
     to ``device``."""
     from ..models.triplane_next3d import TriPlaneGenerator
-    from ..nn.discriminator import DualDiscriminator
+    from ..models.triplane_texture import TriPlaneTextureGenerator
+    from ..nn.discriminator import (DualDiscriminator,
+                                    DualLabelDualDiscriminator)
+    from ..train.augment import AugmentPipe
     from ..train.loss import LossConfig, StyleGAN2Loss
     from ..train.train_step import (TrainStep, make_optimizer,
                                     trainable_parameters)
@@ -158,25 +168,47 @@ def build_training(opts, device):
                     rendering_kwargs=rendering_kwargs,
                     plane_resolution=o['plane_resolution'])
     init = torch.Generator().manual_seed(o['seed'])
-    G = TriPlaneGenerator(topology_path=o['topology_path'],
-                          uv_face_eye_mask_path=o['eye_mask_path'],
-                          generator=init, **g_kwargs)
-    D = DualDiscriminator(
-        c_dim=25, img_resolution=o['resolution'], img_channels=3,
+    G_cls = {'next3d': TriPlaneGenerator,
+             'texture': TriPlaneTextureGenerator}[o['model_version']]
+    G = G_cls(topology_path=o['topology_path'],
+              uv_face_eye_mask_path=o['eye_mask_path'], generator=init,
+              **g_kwargs)
+    # clips: D sees a clip's frames as channels and its labels concatenated
+    # (JAX :179-193)
+    T = num_frames(o)
+    d_kwargs = dict(
+        img_resolution=o['resolution'], img_channels=3 * T,
         channel_base=o['channel_base'], channel_max=o['channel_max'],
         block_kwargs=dict(freeze_layers=o['freezed']),
         epilogue_kwargs=dict(mbstd_group_size=o['mbstd_group']),
         disc_c_noise=o['disc_c_noise'], generator=init)
+    if o['gen_exp_cond']:
+        D = DualLabelDualDiscriminator(c_dim=25 * T, c2_dim=50 * T,
+                                       **d_kwargs)
+    else:
+        D = DualDiscriminator(c_dim=25 * T, **d_kwargs)
     G_ema = copy.deepcopy(G).eval()
     G, D, G_ema = (m.to(device) for m in (G, D, G_ema))
     for p in G_ema.parameters():
         p.requires_grad_(False)
 
+    # the schedules a resume changes (JAX :195-204, reference
+    # train_next3d.py:394-401)
+    ada_kimg, ema_rampup = 500, 0.05
+    blur_init_sigma = 10.0 if o['blur_fade_kimg'] > 0 else 0.0
+    gpc_reg_fade_kimg = o['gpc_reg_fade_kimg']
+    if o['resume_path'] is not None:
+        ada_kimg, ema_rampup = 100, None
+        if not o['resume_blur']:
+            blur_init_sigma = gpc_reg_fade_kimg = 0.0
+    augment_pipe = AugmentPipe(**PIPE_KWARGS) if o['aug'] != 'noaug' \
+        else None
+
     batch = o['batch_size']
     loss_cfg = LossConfig(
         r1_gamma=o['r1_gamma'],
         gpc_reg_prob=o['gpc_reg_prob'] if o['gen_pose_cond'] else None,
-        gpc_reg_fade_kimg=o['gpc_reg_fade_kimg'],
+        gpc_reg_fade_kimg=gpc_reg_fade_kimg,
         density_reg=o['density_reg'],
         density_reg_p_dist=o['density_reg_p_dist'], reg_type=o['reg_type'],
         style_mixing_prob=o['style_mixing_prob'],
@@ -187,9 +219,9 @@ def build_training(opts, device):
             'neural_rendering_resolution_final'],
         neural_rendering_resolution_fade_kimg=o[
             'neural_rendering_resolution_fade_kimg'],
-        blur_init_sigma=10.0 if o['blur_fade_kimg'] > 0 else 0.0,
-        blur_fade_kimg=o['blur_fade_kimg'] * batch / 32)
-    loss = StyleGAN2Loss(G, D, loss_cfg)
+        blur_init_sigma=blur_init_sigma,
+        blur_fade_kimg=o['blur_fade_kimg'] * batch / 32, num_frames=T)
+    loss = StyleGAN2Loss(G, D, loss_cfg, augment_pipe=augment_pipe)
     g_reg_interval = int(o['density_reg_every']) if o['density_reg'] > 0 \
         else None
     step = TrainStep(
@@ -201,28 +233,56 @@ def build_training(opts, device):
     config = dict(outdir=o['outdir'], data=o['data_path'], batch=batch,
                   cfg=o['cfg'], model_version=o['model_version'],
                   gamma=o['r1_gamma'], kimg=o['total_kimg'], glr=o['glr'],
-                  dlr=o['dlr'], aug=o['aug'], freezed=o['freezed'],
+                  dlr=o['dlr'], aug=o['aug'], ada_target=o['ada_target'],
+                  aug_p=o['aug_p'], freezed=o['freezed'],
                   mirror=o['mirror'], style_mixing_prob=o[
                       'style_mixing_prob'], reg_type=o['reg_type'],
-                  seed=o['seed'], G_kwargs=g_kwargs)
+                  seed=o['seed'], dataset_type=o['dataset_type'],
+                  num_frames=T, gen_exp_cond=o['gen_exp_cond'],
+                  G_kwargs=g_kwargs)
     loop = dict(total_kimg=o['total_kimg'], batch_size=batch,
-                ema_kimg=batch * 10 / 32, g_reg_interval=g_reg_interval,
+                ema_kimg=batch * 10 / 32, ema_rampup=ema_rampup,
+                g_reg_interval=g_reg_interval,
                 kimg_per_tick=o['kimg_per_tick'],
                 snapshot_ticks=o['snapshot_ticks'],
                 image_snapshot_ticks=o['snapshot_ticks'],
                 resume_path=o['resume_path'], seed=o['seed'],
                 workers=o['workers'],
-                timing_sample_every=o['timing_sample_every'])
+                timing_sample_every=o['timing_sample_every'],
+                ada_target=o['ada_target'] if o['aug'] == 'ada' else None,
+                augment_p=o['aug_p'] if o['aug'] == 'fixed' else 0.0,
+                ada_kimg=ada_kimg)
     return G, D, G_ema, loss, step, config, loop
 
 
-def train(device='cuda', **opts):
-    """Run the command; returns the loop's result (``cur_nimg`` and the
-    ticks' records) with the networks (``G``, ``D``, ``G_ema``)."""
-    from ..data.dataset import ImageFolderDataset
-    from ..train.training_loop import training_loop
-    from .common import float32_math, save_image_grid
+def num_frames(opts):
+    """Frames a clip: ``--num-frames-per-video`` for a video dataset, else
+    1."""
+    return opts['num_frames_per_video'] if opts['dataset_type'] == 'video' \
+        else 1
 
+
+def make_dataset(opts):
+    """The dataset of ``--data``: PNG images, or clips of PNG frames
+    (``--dataset-type video``, JAX :258-263)."""
+    from ..data.dataset import ImageFolderDataset
+    from ..data.video_dataset import VideoFramesFolderDataset
+    if opts['dataset_type'] == 'video':
+        return VideoFramesFolderDataset(
+            opts['data_path'], resolution=opts['resolution'],
+            num_frames=num_frames(opts), sampling=opts['sampling_type'],
+            max_frame_dist=opts['max_dist'],
+            max_num_frames=opts['max_num_frames'])
+    dataset = ImageFolderDataset(opts['data_path'],
+                                 resolution=opts['resolution'],
+                                 xflip=opts['mirror'])
+    dataset.prebake()
+    return dataset
+
+
+def train(device='cuda', **opts):
+    """Run the command; returns the loop's result (``cur_nimg``, the ticks'
+    records and ``ada_p``) with the networks (``G``, ``D``, ``G_ema``)."""
     _unported(opts)
     if opts['dry_run']:
         print('dry run OK:')
@@ -230,24 +290,37 @@ def train(device='cuda', **opts):
                          default=str))
         return None
     device = torch.device(device)
-    G, D, G_ema, loss, step, config, loop = build_training(opts, device)
-    dataset = ImageFolderDataset(opts['data_path'],
-                                 resolution=opts['resolution'],
-                                 xflip=opts['mirror'])
-    dataset.prebake()
+    return fit(opts, build_training(opts, device), device)
+
+
+def fit(opts, training, device):
+    """Train ``training`` (``build_training``'s networks, loss, step, config
+    and loop kwargs) on the dataset of ``opts``."""
+    from ..train.training_loop import training_loop
+    from .common import float32_math, save_image_grid
+
+    G, D, G_ema, loss, step, config, loop = training
+    dataset = make_dataset(opts)
     # the reals grid and the batch of G_ema's fakes (reference
-    # training_loop.py:277-282, :428-435)
+    # training_loop.py:277-282, :428-435), a clip's first frame (JAX
+    # :276-286)
     outdir = opts['outdir']
     os.makedirs(outdir, exist_ok=True)
     vis_n = int(min(16, opts['batch_size'], len(dataset)))
     vis_rnd = np.random.RandomState(opts['seed'])
     items = [dataset[int(i)] for i in vis_rnd.choice(len(dataset), vis_n,
                                                       replace=False)]
-    save_image_grid(np.stack([im for im, _, _ in items]),
+
+    def frame0(a, base_ndim):
+        return a[0] if a.ndim == base_ndim + 1 else a
+
+    save_image_grid(np.stack([frame0(im, 3) for im, _, _ in items]),
                     os.path.join(outdir, 'reals.png'), drange=(0, 255))
     vis = dict(gen_z=vis_rnd.randn(vis_n, 512).astype(np.float32),
-               gen_c=np.stack([c for _, c, _ in items]).astype(np.float32),
-               gen_v=np.stack([v for _, _, v in items]).astype(np.float32),
+               gen_c=np.stack([frame0(c, 1) for _, c, _ in items]
+                              ).astype(np.float32),
+               gen_v=np.stack([frame0(v, 2) for _, _, v in items]
+                              ).astype(np.float32),
                nrr=opts['neural_rendering_resolution_initial'])
     with float32_math():
         result = training_loop(G, D, G_ema, loss, step, dataset, outdir,

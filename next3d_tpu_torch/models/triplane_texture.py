@@ -27,7 +27,12 @@ ORTH_VIEWS = ((0, 0, 180), (90, 0, 180), (0, 90, 180), (0, -90, 180))
 
 class TriPlaneTextureGenerator(TriPlaneGenerator):
     """The flagship's construction and rendering with the texture variant's
-    plane build. ``v`` is the FLAME vertices alone, (N, 5023, 3)."""
+    plane build. ``v`` is the FLAME vertices, (N, 5023, 3), or the
+    vertices followed by rows that no face indexes, such as the 68
+    landmarks of a training dataset's items (N, 5091, 3): the variant uses
+    the first 5023 rows, as the reference's rasterizer does. (The JAX
+    variant reshapes ``v`` to 5023 rows and so raises on a dataset's
+    items: ROADMAP.md Queue 3.)"""
 
     blends_mouth = False
 
@@ -40,10 +45,10 @@ class TriPlaneTextureGenerator(TriPlaneGenerator):
             [self.face_uv, uvcoords], dim=-1), persistent=False)
 
     def _split_v(self, v):
-        if v.shape[1] != N_FLAME_VERTS:
-            raise ValueError(f'v must be the {N_FLAME_VERTS} FLAME verts, '
+        if v.shape[1] < N_FLAME_VERTS:
+            raise ValueError(f'v must hold the {N_FLAME_VERTS} FLAME verts, '
                              f'got {v.shape[1]} rows')
-        return v, None
+        return v[:, :N_FLAME_VERTS], None
 
     def project_orth(self, v):
         """Orthographic projection of verts (N, 5023, 3) through the 4

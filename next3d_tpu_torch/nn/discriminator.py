@@ -13,8 +13,10 @@ this path: R1 differentiates it twice, and every op here (convolutions,
 ``F.interpolate``, the FIR filters, bias_act, minibatch-std) has a double
 backward.
 
-``DualLabelDualDiscriminator``, ``DummyDualDiscriminator`` and
-``SingleDiscriminator`` are not ported yet and raise.
+Beside ``DualDiscriminator``: ``DualLabelDualDiscriminator`` (a second
+label mapping for the expression label, ``--gen-exp-cond``),
+``DummyDualDiscriminator`` (the raw branch faded out over 500k images) and
+``SingleDiscriminator`` (the image alone).
 """
 
 from __future__ import annotations
@@ -234,25 +236,121 @@ class DualDiscriminator(Discriminator):
                                       f=self.resample_filter)
         x = torch.cat([img['image'], image_raw], dim=1)
         if self.c_dim > 0 and self.disc_c_noise > 0:
-            if generator is None:
-                raise ValueError('disc_c_noise needs a generator')
-            c = c + torch.randn(c.shape, generator=generator,
-                                device=c.device) * c.std(dim=0) \
-                * self.disc_c_noise
+            c = _label_noise(c, self.disc_c_noise, generator)
         return super().forward(x, c)
 
 
-def _not_ported(name):
-    class NotPorted:
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f'{name} is not ported to next3d_tpu_torch yet (ROADMAP.md '
-                f'Queue 1 item 5, training: the other discriminators); use '
-                f'DualDiscriminator')
-    NotPorted.__name__ = NotPorted.__qualname__ = name
-    return NotPorted
+def _label_noise(c, scale, generator):
+    """c + N(0, 1) * std(c over the batch) * scale, the noise drawn from
+    ``generator`` (JAX :268-270; ``jnp.std``, the population std)."""
+    if generator is None:
+        raise ValueError('disc_c_noise needs a generator')
+    return c + torch.randn(c.shape, generator=generator, device=c.device) \
+        * c.std(dim=0, unbiased=False) * scale
 
 
-DualLabelDualDiscriminator = _not_ported('DualLabelDualDiscriminator')
-DummyDualDiscriminator = _not_ported('DummyDualDiscriminator')
-SingleDiscriminator = _not_ported('SingleDiscriminator')
+class DualLabelDualDiscriminator(nn.Module):
+    """The dual discriminator with a second label mapping (JAX :280-358):
+    the label is the 25-wide camera label beside the ``c2_dim``-wide
+    expression label, each mapped by its own network (``mapping``, to
+    ``cmap_dim``; ``mapping2``, to 32), and the epilogue projects onto the
+    two cmaps concatenated. Its blocks, ``mapping``, ``mapping2`` and ``b4``
+    sit at the root of the state_dict as in the JAX tree."""
+
+    def __init__(self, c_dim, c2_dim, img_resolution, img_channels,
+                 architecture='resnet', channel_base=32768, channel_max=512,
+                 conv_clamp=256, cmap_dim=None, disc_c_noise=0,
+                 block_kwargs=None, mapping_kwargs=None,
+                 epilogue_kwargs=None, generator=None):
+        super().__init__()
+        img_channels *= 2
+        self.c_dim = c_dim
+        self.c2_dim = c2_dim
+        self.disc_c_noise = disc_c_noise
+        log2 = int(np.log2(img_resolution))
+        self.block_resolutions = [2 ** i for i in range(log2, 2, -1)]
+        channels = {res: channels_for(res, channel_base, channel_max)
+                    for res in self.block_resolutions + [4]}
+        if cmap_dim is None:
+            cmap_dim = channels[4]
+        if c_dim == 0:
+            cmap_dim = 0
+        self.cmap_dim = cmap_dim
+        self.register_buffer('resample_filter', torch.from_numpy(
+            setup_filter([1, 3, 3, 1])), persistent=False)
+        common = dict(img_channels=img_channels, architecture=architecture,
+                      conv_clamp=conv_clamp, generator=generator)
+        layer_idx = 0
+        for res in self.block_resolutions:
+            block = DiscriminatorBlock(
+                channels[res] if res < img_resolution else 0, channels[res],
+                channels[res // 2], resolution=res,
+                first_layer_idx=layer_idx, **(block_kwargs or {}), **common)
+            setattr(self, f'b{res}', block)
+            layer_idx += block.num_layers
+        mapping = dict(z_dim=0, num_ws=None, w_avg_beta=None,
+                       generator=generator, **(mapping_kwargs or {}))
+        self.mapping = MappingNetwork(c_dim=c_dim, w_dim=cmap_dim, **mapping)
+        self.mapping2 = MappingNetwork(c_dim=c2_dim, w_dim=32, **mapping)
+        self.b4 = DiscriminatorEpilogue(channels[4], cmap_dim=cmap_dim + 32,
+                                        resolution=4,
+                                        **(epilogue_kwargs or {}), **common)
+
+    def forward(self, img, c, generator=None):
+        """img: dict of 'image' and 'image_raw'; c: (N, c_dim + c2_dim)."""
+        c1, c2 = c[:, :self.c_dim], c[:, self.c_dim:]
+        if c2.shape[1] != self.c2_dim:
+            raise ValueError(f'the label must hold {self.c_dim} + '
+                             f'{self.c2_dim} columns, got {c.shape[1]}')
+        image_raw = filtered_resizing(img['image_raw'],
+                                      size=img['image'].shape[-1],
+                                      f=self.resample_filter)
+        x_img = torch.cat([img['image'], image_raw], dim=1)
+        if self.disc_c_noise > 0:
+            c1 = _label_noise(c1, self.disc_c_noise, generator)
+            c2 = _label_noise(c2, self.disc_c_noise, generator)
+        x = None
+        for res in self.block_resolutions:
+            x, x_img = getattr(self, f'b{res}')(x, x_img)
+        cmap = torch.cat([self.mapping(None, c1), self.mapping2(None, c2)],
+                         dim=1)
+        return self.b4(x, x_img, cmap)
+
+    frozen_paths = Discriminator.frozen_paths
+
+
+class DummyDualDiscriminator(Discriminator):
+    """The dual discriminator whose raw branch fades out over the first
+    500k images (JAX :361-381): the upsampled raw image is scaled by
+    max(0, 1 - cur_nimg / 500000), ``cur_nimg`` given to each call."""
+
+    def __init__(self, c_dim, img_resolution, img_channels, generator=None,
+                 **disc_kwargs):
+        super().__init__(c_dim, img_resolution, img_channels * 2,
+                         generator=generator, **disc_kwargs)
+        self.register_buffer('resample_filter', torch.from_numpy(
+            setup_filter([1, 3, 3, 1])), persistent=False)
+
+    def forward(self, img, c, generator=None, cur_nimg=0):
+        raw_fade = max(0.0, 1.0 - cur_nimg / 500000.0)
+        image_raw = filtered_resizing(img['image_raw'],
+                                      size=img['image'].shape[-1],
+                                      f=self.resample_filter) * raw_fade
+        return super().forward(torch.cat([img['image'], image_raw], dim=1), c)
+
+
+class SingleDiscriminator(Discriminator):
+    """D on the full-resolution image alone (JAX :384-403); ``img`` is the
+    image or a dict holding it under 'image'."""
+
+    def __init__(self, c_dim, img_resolution, img_channels, disc_c_noise=0,
+                 generator=None, **disc_kwargs):
+        super().__init__(c_dim, img_resolution, img_channels,
+                         generator=generator, **disc_kwargs)
+        self.disc_c_noise = disc_c_noise
+
+    def forward(self, img, c, generator=None):
+        x = img['image'] if isinstance(img, dict) else img
+        if self.c_dim > 0 and self.disc_c_noise > 0:
+            c = _label_noise(c, self.disc_c_noise, generator)
+        return super().forward(x, c)

@@ -19,9 +19,13 @@ package's ``rng=None`` path: the parity tests use it. Greg's points, their
 perturbations and ray directions can be given (``draws``), so both
 packages see the same ones.
 
-Not ported yet: the augmentation pipe (the ``train`` command refuses
-``--aug``), and, raising when asked for, video clips (``num_frames > 1``)
-and ``remat_synthesis``.
+Augmentation (``augment_pipe``, train/augment.py) runs inside ``run_D``
+as in JAX: one draw for the image beside its upsampled raw image, at the
+probability ``sched['aug_p']``. Video clips (``num_frames > 1``): the
+phases flatten a batch of clips into frames (``flatten_clips``) and
+``run_D`` folds each clip's frames back into channels, so D sees a clip.
+
+Not ported yet, and raising when asked for: ``remat_synthesis``.
 Without remat the 512^2 flagship trains at batch 4 on one 80 GB card
 (``chip_smoke.py`` phase 13 logs its peak memory); the JAX default is
 remat on, because a 16 GB TPU needs it.
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 
 from ..nn.discriminator import filtered_resizing
 from ..ops import setup_filter
+from ..ops.interpolate import interpolate_bilinear
 
 
 @dataclass
@@ -86,20 +91,33 @@ def gaussian_blur_dynamic(img, blur_sigma, max_size):
 class StyleGAN2Loss:
     """The four phases' losses for ``G`` and ``D`` (the port's modules)."""
 
-    def __init__(self, G, D, cfg: LossConfig, deterministic=False):
-        for asked, what in ((cfg.num_frames > 1, 'video clips (num_frames '
-                             '> 1)'),
-                            (cfg.remat_synthesis, 'remat_synthesis')):
-            if asked:
-                raise NotImplementedError(
-                    f'{what} is not ported to next3d_tpu_torch yet '
-                    f'(ROADMAP.md Queue 1 item 5, training)')
+    def __init__(self, G, D, cfg: LossConfig, augment_pipe=None,
+                 deterministic=False):
+        if cfg.remat_synthesis:
+            raise NotImplementedError(
+                'remat_synthesis is not ported to next3d_tpu_torch yet '
+                '(ROADMAP.md Queue 1 item 5, training)')
         self.G = G
         self.D = D
         self.cfg = cfg
+        self.augment_pipe = augment_pipe
         self.deterministic = deterministic
         self.resample_filter = torch.from_numpy(setup_filter([1, 3, 3, 1]))
         self.blur_max_size = int(np.floor(cfg.blur_init_sigma * 3))
+
+    def flatten_clips(self, batch, real_img=None):
+        """Clips (B, T, ...) as frames (B*T, ...), gen_z repeated for each
+        frame of its clip (JAX :104-120); as given when num_frames is 1."""
+        T = self.cfg.num_frames
+        if T <= 1:
+            return batch, real_img
+        out = dict(batch)
+        out['gen_z'] = batch['gen_z'].repeat_interleave(T, dim=0)
+        for k in ('gen_c', 'gen_v', 'real_c'):
+            out[k] = batch[k].flatten(0, 1)
+        if real_img is not None:
+            real_img = real_img.flatten(0, 1)
+        return out, real_img
 
     # ------------------------------------------------------------ schedules
     def schedules(self, cur_nimg):
@@ -165,14 +183,31 @@ class StyleGAN2Loss:
         return out, ws, w_mean
 
     def run_D(self, img, c, generator, sched):
-        """D's logits, the image blurred while blur_sigma > 0 (JAX
-        :194-222)."""
+        """D's logits (JAX :194-222): the image blurred while blur_sigma >
+        0; with the augment pipe, one draw at p = sched['aug_p'] for the
+        image and the raw image upsampled to it (antialiased bilinear), the
+        raw half resized back; with clips, each clip's frames folded into
+        channels (frame-major) and its labels concatenated."""
         image = img['image']
         if self.blur_max_size > 0 and sched['blur_sigma'] > 0:
             image = gaussian_blur_dynamic(image, sched['blur_sigma'],
                                           self.blur_max_size)
-        return self.D({'image': image, 'image_raw': img['image_raw']}, c,
-                      generator=generator)
+        raw = img['image_raw']
+        if self.augment_pipe is not None:
+            C = image.shape[1]
+            up = interpolate_bilinear(raw, image.shape[-1], antialias=True)
+            pair = self.augment_pipe(torch.cat([image, up], 1),
+                                     sched['aug_p'], generator)
+            image = pair[:, :C]
+            raw = interpolate_bilinear(pair[:, C:], raw.shape[-1],
+                                       antialias=True)
+        img = {'image': image, 'image_raw': raw}
+        T = self.cfg.num_frames
+        if T > 1:
+            img = {k: v.reshape(-1, T * v.shape[1], *v.shape[2:])
+                   for k, v in img.items()}
+            c = c.reshape(-1, T * c.shape[-1])
+        return self.D(img, c, generator=generator)
 
     def prepare_real(self, real_img, blur_sigma, nrr):
         """The raw-branch target of a real batch (JAX :224-234)."""

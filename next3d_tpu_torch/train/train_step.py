@@ -16,6 +16,9 @@ gradient: its moments decay and its step count advances. ``torch.optim.Adam``
 skips a parameter whose ``.grad`` is None, so each phase gives such
 parameters a zero gradient.
 
+A batch of video clips, (B, T, ...), is flattened into frames at the top
+of each phase (``StyleGAN2Loss.flatten_clips``), as in JAX.
+
 Buffers are not trained: ``w_avg`` (the mapping's running mean of w, folded
 in after each phase that ran G, beta 0.998), ``noise_const``, and the
 parameters ``orth_scale`` / ``orth_shift``, which the reference keeps as
@@ -122,6 +125,7 @@ class TrainStep:
         self.opt_D = opt_D
 
     def gmain(self, batch, generator, sched, nrr):
+        batch, _ = self.loss.flatten_clips(batch)
         with _frozen(_params(self.opt_D)):
             loss, stats, w_mean = self.loss.gmain_loss(batch, generator,
                                                        sched, nrr)
@@ -130,12 +134,14 @@ class TrainStep:
         return _detached(stats)
 
     def greg(self, batch, generator, gain, sched, draws=None):
+        batch, _ = self.loss.flatten_clips(batch)
         with _frozen(_params(self.opt_D)):
             loss, stats = self.loss.greg_loss(batch, generator, sched, draws)
             stats['Grad/Greg/norm'] = _adam_step(self.opt_G, loss * gain)
         return _detached(stats)
 
     def dmain(self, batch, real_img, generator, sched, nrr):
+        batch, real_img = self.loss.flatten_clips(batch, real_img)
         real = self.loss.prepare_real(real_img, sched['blur_sigma'], nrr)
         with _frozen(_params(self.opt_G)):
             loss, stats, w_mean = self.loss.dmain_loss(batch, real,
@@ -146,6 +152,7 @@ class TrainStep:
         return _detached(stats)
 
     def dreg(self, batch, real_img, gain, generator, sched, nrr):
+        batch, real_img = self.loss.flatten_clips(batch, real_img)
         real = self.loss.prepare_real(real_img, sched['blur_sigma'], nrr)
         with _frozen(_params(self.opt_G)):
             loss, stats = self.loss.dreg_loss(batch, real, generator, sched)

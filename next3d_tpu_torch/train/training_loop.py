@@ -16,11 +16,18 @@ the tick under ``extra``) with the networks and both Adam states, so a run
 resumed from it gives, on the CPU, the parameters of an uninterrupted run
 bit for bit.
 
+The ADA controller (JAX :61-64, :210-217): the augment pipe's probability
+``p`` starts at ``augment_p``, rides each batch's schedule as
+``sched['aug_p']``, and with an ``ada_target`` moves every
+``ada_interval`` batches by the mean of ``Loss/signs/real`` since the last
+move (``train/augment.py ada_update_p``); ``Progress/augment`` reports it.
+A snapshot keeps ``ada_p`` under ``extra`` as JAX's does, and the signs
+gathered since the last move, so a resume continues the controller too.
+
 Per-phase timing (``Timing/<phase>``, seconds, a synchronized wall time)
 is sampled every ``timing_sample_every`` batches, as in the JAX package.
-In-training metrics, ADA, the TensorBoard writer and the abort and progress
-callbacks are not ported (the ``train`` command refuses the options that
-ask for the first two).
+In-training metrics, the TensorBoard writer and the abort and progress
+callbacks are not ported (the ``train`` command refuses ``--metrics``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import make_data_iterator
+from .augment import ada_update_p
 from ..utils.checkpoint import (load_optimizer_state, load_snapshot,
                                 optimizer_state, save_snapshot)
 from ..utils.weights import load_jax_params, state_dict_to_params
@@ -102,7 +110,8 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
                   kimg_per_tick=4, snapshot_ticks=50, image_snapshot_ticks=50,
                   resume_path=None, seed=0, config=None,
                   snapshot_vis_batch=None, workers=3,
-                  timing_sample_every=16):
+                  timing_sample_every=16, ada_target=None, augment_p=0.0,
+                  ada_interval=4, ada_kimg=500):
     """Train ``G`` and ``D`` (the loss's, on ``device``) with ``step``'s
     optimizers on batches of ``dataset`` until ``total_kimg`` thousand
     images. Returns {'cur_nimg', 'ticks': the stats.jsonl records}."""
@@ -113,6 +122,8 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
     named_G = dict(G.named_parameters())
     named_D = dict(D.named_parameters())
     cur_nimg = batch_idx = tick = 0
+    ada_p = float(augment_p)
+    ada_signs = []  # Loss/signs/real since the controller's last move
     if resume_path:
         snap = load_snapshot(resume_path)
         if snap.get('format_version') != 1:
@@ -129,6 +140,8 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
         batch_idx, tick = int(extra['batch_idx']), int(extra['tick'])
         generator.set_state(torch.from_numpy(np.array(snap['rng_key'])))
         cond_rnd.set_state(extra['cond_rnd_state'])
+        ada_p = float(extra.get('ada_p', ada_p))
+        ada_signs = list(extra.get('ada_signs', []))
     data = make_data_iterator(dataset, batch_size, seed=seed,
                               prefetch=workers, start=batch_idx * batch_size)
 
@@ -155,6 +168,7 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
                      'gen_v': torch.from_numpy(gen_v).to(device),
                      'real_c': torch.from_numpy(host['c']).to(device)}
             sched, nrr = loss_obj.schedules(cur_nimg)
+            sched['aug_p'] = ada_p
             do_greg = g_reg_interval is not None and \
                 batch_idx % g_reg_interval == 0
             do_dreg = d_reg_interval is not None and \
@@ -175,6 +189,17 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
             stats.report_dict({'Timing/data_fetch': fetch})
             cur_nimg += batch_size
             batch_idx += 1
+            # the ADA controller (JAX :210-217)
+            if 'Loss/signs/real' in step_stats:
+                ada_signs.append(float(step_stats['Loss/signs/real']))
+            if ada_target is not None and batch_idx % ada_interval == 0 \
+                    and ada_signs:
+                ada_p = ada_update_p(ada_p, float(np.mean(ada_signs)),
+                                     ada_target, batch_size * ada_interval,
+                                     ada_kimg=ada_kimg,
+                                     batch_size=batch_size)
+                ada_signs.clear()
+            stats.report_dict({'Progress/augment': ada_p})
 
             done = cur_nimg >= total_kimg * 1000
             if cur_nimg < tick_start_nimg + kimg_per_tick * 1000 and not done:
@@ -220,7 +245,8 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
                     cur_nimg=cur_nimg, rng_key=generator.get_state().numpy(),
                     config=config,
                     extra={'batch_idx': batch_idx, 'tick': tick + 1,
-                           'cond_rnd_state': cond_rnd.get_state()})
+                           'cond_rnd_state': cond_rnd.get_state(),
+                           'ada_p': ada_p, 'ada_signs': list(ada_signs)})
             tick += 1
             tick_start_nimg = cur_nimg
             tick_start_time = time.time()
@@ -230,7 +256,7 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
         stats_jsonl.close()
         if hasattr(data, 'close'):
             data.close()
-    return {'cur_nimg': cur_nimg, 'ticks': records}
+    return {'cur_nimg': cur_nimg, 'ticks': records, 'ada_p': ada_p}
 
 
 @torch.no_grad()

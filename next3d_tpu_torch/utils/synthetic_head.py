@@ -178,3 +178,34 @@ def save_dataset(root, images, verts, labels, mesh=None):
     with open(os.path.join(root, 'dataset.json'), 'w') as f:
         json.dump({'labels': entries}, f)
     return root
+
+
+def save_clip_dataset(root, clips, mesh=None):
+    """Write a video dataset in the layout ``data/video_dataset.py`` reads:
+    for clip ``k`` of ``clips`` (a list of (images uint8 (T, H, W, 3), verts
+    (T, 5091, 3), labels (T, L))) its frames as ``clip<k>/f<t>.png``, their
+    meshes as ``meshes/clip<k>/f<t>.obj``, landmarks as
+    ``lms/clip<k>/f<t>.txt`` and labels in ``dataset.json`` under
+    ``'clip<k>/f<t>.png'``. Returns ``root``."""
+    from .png import write_png
+    if mesh is None:
+        mesh, _ = synthetic_head()
+    entries = []
+    for k, (images, verts, labels) in enumerate(clips):
+        clip = f'clip{k:04d}'
+        for sub in (clip, os.path.join('meshes', clip),
+                    os.path.join('lms', clip)):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i, (img, v, c) in enumerate(zip(images, verts, labels)):
+            stem = f'f{i:04d}'
+            write_png(os.path.join(root, clip, stem + '.png'), img)
+            _, kpt = save_head(os.path.join(root, 'meshes', clip,
+                                            stem + '.obj'),
+                               mesh._replace(verts=v[:len(mesh.verts)]),
+                               v[len(mesh.verts):])
+            os.replace(kpt, os.path.join(root, 'lms', clip, stem + '.txt'))
+            entries.append([f'{clip}/{stem}.png',
+                            np.asarray(c, np.float32).tolist()])
+    with open(os.path.join(root, 'dataset.json'), 'w') as f:
+        json.dump({'labels': entries}, f)
+    return root

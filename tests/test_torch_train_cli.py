@@ -1,9 +1,13 @@
 """The port's ``train`` command and training loop on the CPU, at a tiny
 size (128^2 images, 64^2 planes, neural rendering resolution 32,
 channel_base 1024, channel_max 32, batch 1) on a toy dataset of the
-synthetic head: two ticks, a snapshot, a resume from it
-that gives parameters bit-equal to an uninterrupted run; the command's
-options against the JAX click command's; what is not ported raises."""
+synthetic head: two ticks, a snapshot, a resume from it through the loop
+that gives parameters bit-equal to an uninterrupted run, and one through
+the command, which changes the schedules as the JAX command does; the
+texture variant with ADA, a fixed augmentation probability and video clips,
+each run and resumed; the command's options against the JAX click
+command's, and what each configuration builds against what the JAX
+command builds; what is not ported raises."""
 
 import os
 import pickle
@@ -12,13 +16,20 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 from next3d_tpu.cli import train as jax_train
+from next3d_tpu.train import training_loop as jax_training_loop
 from next3d_tpu_torch.cli import main as cli
+from next3d_tpu_torch.cli import train as port_train
 from next3d_tpu_torch.cli.common import camera_label
+from next3d_tpu_torch.models.triplane_texture import TriPlaneTextureGenerator
 from next3d_tpu_torch.utils.checkpoint import (load_optimizer_state,
                                                load_snapshot)
-from next3d_tpu_torch.utils.synthetic_head import (save_dataset, save_head,
+from next3d_tpu_torch.utils.synthetic_head import (save_clip_dataset,
+                                                   save_dataset, save_head,
                                                    synthetic_head)
+from next3d_tpu_torch.utils.weights import load_jax_params
 
 from torch_parity import one_thread  # noqa: F401 (a fixture)
 
@@ -35,6 +46,21 @@ def toy_dataset(root, n=4, size=128, seed=0):
     return save_dataset(root, images, v.astype(np.float32), labels, mesh)
 
 
+def toy_clips(root, n=2, frames=3, size=128, seed=0):
+    """``n`` clips of ``frames`` frames of ``toy_dataset``'s kind."""
+    mesh, lms = synthetic_head()
+    rs = np.random.RandomState(seed)
+    base = np.concatenate([mesh.verts, lms])[None]
+    clips = []
+    for k in range(n):
+        v = base + rs.randn(frames, 5091, 3).astype(np.float32) * 0.002
+        images = rs.randint(0, 256, (frames, size, size, 3)).astype(np.uint8)
+        labels = np.concatenate([camera_label(0.05 * (k + i), 0.0)
+                                 for i in range(frames)])
+        clips.append((images, v.astype(np.float32), labels))
+    return save_clip_dataset(root, clips, mesh)
+
+
 @pytest.fixture(scope='module')
 def files(tmp_path_factory):
     root = tmp_path_factory.mktemp('train')
@@ -43,9 +69,14 @@ def files(tmp_path_factory):
     return root, data, obj
 
 
-def _argv(files, outdir, kimg, *extra):
-    root, data, obj = files
-    return ['train', '--outdir', str(root / outdir), '--data', data,
+@pytest.fixture(scope='module')
+def clips(files):
+    return toy_clips(str(files[0] / 'clips'))
+
+
+def _argv(files, outdir, kimg, *extra, data=None):
+    root, images, obj = files
+    return ['train', '--outdir', str(root / outdir), '--data', data or images,
             '--batch', '1', '--kimg', str(kimg), '--tick', '0.001',
             '--snap', '2', '--resolution', '128', '--cbase', '1024',
             '--cmax', '32', '--plane-resolution', '64',
@@ -58,13 +89,24 @@ def _state(result):
             for name in ('G', 'D', 'G_ema')}
 
 
+def _opts(argv):
+    """The options ``cli.run`` hands ``train``."""
+    opts = vars(cli.build_parser().parse_args(argv))
+    opts.pop('command')
+    return opts
+
+
 @pytest.mark.usefixtures('one_thread')
 def test_train_resumes_bit_exact(files):
     """Three batches at once (a tick each), against two (ticks 0 and 1, a
-    snapshot at the end) and a resume from that snapshot for one more: G,
-    D and G_ema equal bit for bit, and the resumed run continues cur_nimg
-    and the tick count. Batch 0 runs all four phases, its stats are finite,
-    and the third batch moved each network."""
+    snapshot at the end) and a resume from that snapshot for one more
+    through the loop with the uninterrupted run's schedules: G, D and G_ema
+    equal bit for bit, and the resumed run continues cur_nimg and the tick
+    count. Batch 0 runs all four phases, its stats are finite, and the
+    third batch moved each network. (A resume through the command changes
+    the schedules as the JAX command does, EMA without ramp-up and no blur:
+    ``test_options_build_what_the_jax_command_builds``; the command's
+    resumes run in ``test_train_variant_runs_and_resumes``.)"""
     whole = cli.run(_argv(files, 'whole', 0.003))
     assert whole['cur_nimg'] == 3 and len(whole['ticks']) == 3
     first = whole['ticks'][0]
@@ -82,7 +124,11 @@ def test_train_resumes_bit_exact(files):
                 os.listdir(run))
     snap = str(run / 'network-snapshot-000000.pkl')
     assert load_snapshot(snap)['cur_nimg'] == 2
-    resumed = cli.run(_argv(files, 'resumed', 0.003, '--resume', snap))
+    opts = _opts(_argv(files, 'resumed', 0.003))
+    device = opts.pop('device')
+    training = port_train.build_training(opts, device)
+    training[-1]['resume_path'] = snap
+    resumed = port_train.fit(opts, training, device)
     assert resumed['cur_nimg'] == 3
     assert [r['tick'] for r in resumed['ticks']] == [2]
 
@@ -96,6 +142,82 @@ def test_train_resumes_bit_exact(files):
     for name in want:
         assert any(not torch.equal(moved[name][k], v)
                    for k, v in want[name].items()), name
+
+
+
+def _jax_build(opts):
+    """What the JAX command's ``train`` builds for ``opts``: the keyword
+    arguments it hands its training loop (the loop itself replaced), with
+    its loss object."""
+    seen = {}
+
+    def capture(G, D, loss_obj, step, it, **kwargs):
+        seen.update(kwargs, G=G, D=D, loss=loss_obj)
+        if hasattr(it, 'close'):
+            it.close()
+
+    kw = {k: v for k, v in opts.items()
+          if k not in ('device', 'timing_sample_every')}
+    patch = pytest.MonkeyPatch()
+    patch.setattr(jax_training_loop, 'training_loop', capture)
+    try:
+        jax_train.train(**kw)
+    finally:
+        patch.undo()
+    return seen
+
+
+CONFIGS = {
+    'default': [],
+    'resume': ['--resume', 'run/network-snapshot-000000.pkl'],
+    'resume-blur': ['--resume', 'run/network-snapshot-000000.pkl',
+                    '--resume-blur', 'True', '--aug', 'ada'],
+    'ada': ['--aug', 'ada', '--target', '0.7'],
+    'fixed': ['--aug', 'fixed', '--p', '0.5'],
+    'texture': ['--model-version', 'texture'],
+    'video': ['--dataset-type', 'video', '--num-frames-per-video', '2'],
+    'gen-exp-cond': ['--gen-exp-cond', 'True'],
+}
+
+
+@pytest.mark.parametrize('config', list(CONFIGS))
+def test_options_build_what_the_jax_command_builds(files, clips, config):
+    """The schedules, the loss configuration, the augment pipe, the
+    networks' classes and the discriminator's widths that the port's
+    command builds for a configuration, against what the JAX command
+    builds for the same options. A resume (JAX :195-204): ada_kimg 100, no
+    EMA ramp-up and, unless --resume-blur, blur_init_sigma and
+    gpc_reg_fade_kimg 0."""
+    data = clips if config == 'video' else None
+    opts = _opts(_argv(files, 'unused', 0.001, *CONFIGS[config], data=data))
+    opts.pop('device')
+    G, D, _, loss, _, config_dict, loop = port_train.build_training(opts,
+                                                                    'cpu')
+    want = _jax_build(dict(opts, outdir=str(files[0] / 'jax_build')))
+    for key in ('ema_rampup', 'ada_kimg', 'ada_target', 'augment_p',
+                'total_kimg', 'batch_size', 'ema_kimg', 'g_reg_interval',
+                'kimg_per_tick', 'snapshot_ticks', 'resume_path', 'seed'):
+        assert loop[key] == want[key], key
+    got_cfg = dataclasses.asdict(loss.cfg)
+    want_cfg = dataclasses.asdict(want['loss'].cfg)
+    for key in want_cfg:
+        if key != 'remat_synthesis':   # the port trains without remat
+            assert got_cfg[key] == want_cfg[key], key
+    pipes = loss.augment_pipe, want['loss'].augment_pipe
+    assert (pipes[0] is None) == (pipes[1] is None)
+    if pipes[0] is not None:
+        for key in ('xflip', 'rotate90', 'xint', 'scale', 'rotate', 'aniso',
+                    'xfrac', 'brightness', 'contrast', 'lumaflip', 'hue',
+                    'saturation', 'imgfilter', 'noise', 'cutout'):
+            assert getattr(pipes[0], key) == getattr(pipes[1], key), key
+    assert type(G).__name__ == type(want['G']).__name__
+    assert type(D).__name__ == type(want['D']).__name__
+    assert D.c_dim == want['D'].c_dim
+    assert getattr(D, 'c2_dim', None) == getattr(want['D'], 'c2_dim', None)
+    jax_d = getattr(want['D'], 'disc', want['D'])
+    assert D.b128.fromrgb.weight.shape[1] == \
+        jax_d.blocks[128].fromrgb.in_channels
+    assert config_dict['aug'] == opts['aug']
 
 
 def test_options_match_the_jax_command():
@@ -113,10 +235,71 @@ def test_options_match_the_jax_command():
         'device', 'timing_sample_every'}
 
 
-@pytest.mark.parametrize('extra', [
-    ['--model-version', 'texture'], ['--dataset-type', 'video'],
-    ['--gen-exp-cond', 'True'], ['--aug', 'ada'], ['--metrics', 'fid50k'],
-    ['--gpus', '2']])
+VARIANTS = {
+    # a target below every mean sign moves p up at each 4th batch by
+    # batch * 4 / (ada_kimg * 1000)
+    'texture-ada': (['--model-version', 'texture', '--aug', 'ada',
+                     '--target', '-2'], 4, 4 / 500000),
+    # on labels 75 wide, as the dual-label discriminator needs them
+    'fixed': (['--aug', 'fixed', '--p', '0.5', '--gen-exp-cond', 'True'], 2,
+              0.5),
+    'video': (['--dataset-type', 'video', '--num-frames-per-video', '2',
+               '--model-version', 'texture'], 2, 0.0),
+}
+
+
+@pytest.mark.usefixtures('one_thread')
+@pytest.mark.parametrize('variant', list(VARIANTS))
+def test_train_variant_runs_and_resumes(files, clips, variant):
+    """The texture variant with ADA, a fixed augmentation probability with
+    the dual-label discriminator (on labels 75 wide, as the JAX command
+    needs them) and clips of 2 frames (of the texture variant, the cheaper
+    generator on the CPU) train a few batches of 1 on the CPU, with finite
+    stats, ``ada_p`` as the controller gives it in the result and in the
+    snapshot, and resume from the snapshot for one batch more with the
+    snapshot's ``ada_p``. The texture variant's snapshot loads into a
+    ``TriPlaneTextureGenerator`` strictly."""
+    extra, batches, ada_p = VARIANTS[variant]
+    extra = extra + ['--snap', '100']   # a snapshot and a grid at the end
+    data = None
+    if variant == 'video':
+        data = clips
+    elif variant == 'fixed':
+        data = str(files[0] / 'data75')
+        if not os.path.exists(data):
+            mesh, _ = synthetic_head()
+            rs = np.random.RandomState(1)
+            v = (np.concatenate([mesh.verts, synthetic_head()[1]])[None]
+                 + rs.randn(2, 5091, 3) * 0.002).astype(np.float32)
+            labels = np.concatenate([np.concatenate(
+                [camera_label(0.05 * i, 0.0), rs.randn(1, 50)], 1)
+                for i in range(2)]).astype(np.float32)
+            save_dataset(data, rs.randint(0, 256, (2, 128, 128, 3)).astype(
+                np.uint8), v, labels, mesh)
+    run = cli.run(_argv(files, variant, batches / 1000, *extra, data=data))
+    assert run['cur_nimg'] == batches
+    for r in run['ticks']:
+        bad = [k for k, x in r.items() if isinstance(x, float)
+               and not np.isfinite(x)]
+        assert not bad, bad
+        assert 'Progress/augment' in r
+    assert run['ada_p'] == pytest.approx(ada_p, rel=1e-12, abs=0)
+    snap = str(files[0] / variant / 'network-snapshot-000000.pkl')
+    saved = load_snapshot(snap)
+    assert saved['extra']['ada_p'] == run['ada_p']
+    if variant == 'texture-ada':
+        G = TriPlaneTextureGenerator(topology_path=files[2],
+                                     **saved['config']['G_kwargs'])
+        load_jax_params(G, saved['params_G_ema'])
+    resumed = cli.run(_argv(files, variant + '-resumed',
+                            (batches + 1) / 1000, *extra, '--resume', snap,
+                            data=data))
+    assert resumed['cur_nimg'] == batches + 1
+    assert [r['tick'] for r in resumed['ticks']] == [batches]
+    assert resumed['ada_p'] == run['ada_p']
+
+
+@pytest.mark.parametrize('extra', [['--metrics', 'fid50k'], ['--gpus', '2']])
 def test_unported_options_raise(files, extra):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         cli.run(_argv(files, 'unported', 0.001, *extra))

@@ -54,7 +54,7 @@ def setup():
 
 def test_discriminator_forward_matches_jax(setup):
     """D's logits on an image and a raw render, and with freeze_layers the
-    same frozen paths."""
+    same frozen paths, for the other discriminators too."""
     jd, pd, D, batch, real, real_jax = setup
     got = D({k: t(v) for k, v in real_jax.items()}, t(batch['real_c']))
     want = jd(pd, real_jax, jnp.asarray(batch['real_c']))
@@ -66,10 +66,12 @@ def test_discriminator_forward_matches_jax(setup):
     assert discriminator.DualDiscriminator(**kw).frozen_paths() == \
         jax_disc.DualDiscriminator(**kw).frozen_paths() == [
             ('b128', 'fromrgb'), ('b128', 'conv0'), ('b128', 'conv1')]
-    for name in ('DualLabelDualDiscriminator', 'DummyDualDiscriminator',
-                 'SingleDiscriminator'):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            getattr(discriminator, name)(**D_KWARGS)
+    # the other discriminators (their logits: tests/test_torch_train_variants.py)
+    for name, extra in (('DualLabelDualDiscriminator', dict(c2_dim=50)),
+                        ('DummyDualDiscriminator', {}),
+                        ('SingleDiscriminator', {})):
+        assert getattr(discriminator, name)(**kw, **extra).frozen_paths() \
+            == getattr(jax_disc, name)(**kw, **extra).frozen_paths(), name
 
 
 @pytest.mark.parametrize('mode', ['antialiased', 'classic', 'none', 0.3])

@@ -91,7 +91,8 @@ def test_obj_io_matches_jax_package(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (its CLIs and its training path included),
+    """Every module of the port (its CLIs and its training path included,
+    the augment pipe and the video dataset too),
     and a generator built from it, pull in neither JAX nor any module of
     the JAX package, nor click or PIL, which the card machine lacks."""
     code = (
@@ -104,7 +105,9 @@ def test_port_imports_no_jax():
         "assert {'next3d_tpu_torch.nn.discriminator', "
         "'next3d_tpu_torch.train.loss', 'next3d_tpu_torch.train.train_step', "
         "'next3d_tpu_torch.train.training_loop', "
-        "'next3d_tpu_torch.data.dataset', 'next3d_tpu_torch.cli.train'} "
+        "'next3d_tpu_torch.data.dataset', 'next3d_tpu_torch.cli.train', "
+        "'next3d_tpu_torch.train.augment', "
+        "'next3d_tpu_torch.data.video_dataset'} "
         "<= set(names), names\n"
         "from next3d_tpu_torch.models import (triplane_next3d,"
         " triplane_texture)\n"
