@@ -128,7 +128,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      a stat that is not finite or a phase that did not run, and logs its
      last tick's img/s (frames/s for clips), ms a phase (the first batch
      and the last tick), peak memory, launches and ada_p, beside the card's
-     name and power limit. It ends with a {"train_variants": ...} line.
+     name and power limit. It ends with a {"train_variants": ...} line;
+ 16. checkpoint interop, at the 512^2 FFHQ config in phase 13's temporary
+     directory (check_checkpoints): (a) phase 6's flagship written as a
+     reference-format Next3D .pkl (persistence-wrapped modules with
+     torch-tensor leaves, the reference's init_kwargs, training_set_kwargs
+     and augment_pipe, and a buffer the port does not have), read by
+     load_any_generator (timed), against phase 10's batch-4 forward within
+     its run-to-run spread, and reenact over 16 frames and gen-samples of
+     one seed from it, each launching K1 and K4; (b) an EG3D-format .pkl
+     (backbone, superresolution and decoder of phase 6's G_ema, and a D):
+     ``train --resume eg3d.pkl`` at phase 13's config for one tick of 4
+     batches of 4, the warm-started networks checked just after the load
+     (the init with the donor's leaves wherever a name and a shape match,
+     D the donor's), every phase run, K4 and its backward launched, every
+     stat finite; (c) a JAX-layout format-1 snapshot (optax's class names)
+     of (b)'s networks and Adam states, resumed with its Adam states equal
+     to the source's, for one batch; a params_G_ema-only snapshot resumed;
+     (d) (b)'s TensorBoard scalars equal to its stats.jsonl. It logs the
+     .pkl load time, reenact f/s from the .pkl beside phase 12's, the
+     warm-started run's img/s and peak memory, beside the card's name and
+     power limit, and a {"checkpoints": ...} line.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -171,11 +191,12 @@ archive`` of the parent commit unpacked into ``build/parent`` (git-ignored).
 The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
 the in-repo synthetic head. The run uses no JAX. It ends with a
-{"train": ...} line, a {"bf16": ...} line, a {"train_variants": ...}
-line, the card line, a JSON object with one entry per kernel (K1, K2, K4
-and K4's backward with their training launches: phase 13's, and for K2
-phase 15's texture run) and the result line {"ok": true, "device":
-{...}}.
+{"train": ...} line, a {"train_variants": ...} line, a {"bf16": ...}
+line, a {"checkpoints": ...} line, the card line, a JSON object with one
+entry per kernel (K1, K2, K4 and K4's backward with their training
+launches: phase 13's, and for K2 phase 15's texture run; K1, K4 and K4's
+backward with phase 16's launches a command) and the result line {"ok":
+true, "device": {...}}.
 """
 
 import argparse
@@ -1059,7 +1080,8 @@ def check_clis(G, g_kwargs, mesh, lms, device, card, kernels, ref, spread,
     ``g_kwargs``, on ``device`` (the card). ``ref`` is
     phase 10's batch-4 forward under deterministic cuDNN, ``spread`` its
     run-to-run max-abs there and ``inputs`` its (z, c, v). Returns the K1
-    and K4 launches of each command."""
+    and K4 launches of each command and reenact's f/s without its frame
+    writes."""
     import numpy as np
     from next3d_tpu_torch.cli import main as cli
     from next3d_tpu_torch.cli.common import camera_label, load_generator
@@ -1147,28 +1169,17 @@ def check_clis(G, g_kwargs, mesh, lms, device, card, kernels, ref, spread,
             raise RuntimeError('K4 disagrees at the shape path\'s chunk')
         del got, want, planes, loaded
 
-        drive = os.path.join(tmp, 'drive')
-        os.makedirs(drive)
-        frames = head_batch(mesh, lms, 16, 'cpu').numpy()
-        labels = []
-        for i, f in enumerate(frames):
-            stem = f'frame{i:03d}'
-            save_head(os.path.join(drive, stem + '.obj'),
-                      mesh._replace(verts=f[:5023]), f[5023:])
-            labels.append([stem + '.png',
-                           camera_label(0.02 * i, 0.0)[0].tolist()])
-        with open(os.path.join(drive, 'dataset.json'), 'w') as fh:
-            json.dump({'labels': labels}, fh)
+        drive = write_drive_dir(os.path.join(tmp, 'drive'), mesh, lms)
         out_r = os.path.join(tmp, 'reenact')
         stats = command('reenact', [
             'reenact', '--network', snap, '--drive-root', drive, '--seeds',
             '0', '--outdir', out_r, '--topology-path', obj],
             [os.path.join(out_r, 'reenact_seed0000.mp4')])
         n = stats['frames']
+        reenact_fps = n / stats['seconds_without_writes']
         log(f'reenact: {n} frames at 512^2, batch 1, from the first frame '
             f'to the last: {n / stats["seconds"]:.3f} f/s with the frame '
-            f'writes, {n / stats["seconds_without_writes"]:.3f} f/s without '
-            f'them, on {card}')
+            f'writes, {reenact_fps:.3f} f/s without them, on {card}')
 
         out_v = os.path.join(tmp, 'video')
         stats = command('gen-videos', [
@@ -1192,9 +1203,30 @@ def check_clis(G, g_kwargs, mesh, lms, device, card, kernels, ref, spread,
                     f'grad: raises ({e})')
             else:
                 raise RuntimeError('K4 took coordinates that require grad')
-        return launches
+        return launches, reenact_fps
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_drive_dir(drive, mesh, lms, n=16):
+    """A reenact driving directory in ``drive``: ``n`` jittered frames of the
+    head as .obj and _kpt2d.txt files, with their camera labels in
+    dataset.json."""
+    from next3d_tpu_torch.cli.common import camera_label
+    from next3d_tpu_torch.utils.synthetic_head import save_head
+
+    os.makedirs(drive)
+    frames = head_batch(mesh, lms, n, 'cpu').numpy()
+    labels = []
+    for i, f in enumerate(frames):
+        stem = f'frame{i:03d}'
+        save_head(os.path.join(drive, stem + '.obj'),
+                  mesh._replace(verts=f[:5023]), f[5023:])
+        labels.append([stem + '.png',
+                       camera_label(0.02 * i, 0.0)[0].tolist()])
+    with open(os.path.join(drive, 'dataset.json'), 'w') as fh:
+        json.dump({'labels': labels}, fh)
+    return drive
 
 
 def profile_phases(opts, dataset_path, device, phases=('Gmain', 'Greg',
@@ -1514,6 +1546,295 @@ def check_training_variants(files, mesh, device, card, kernels):
                      kernels, card, frames=2, expect=('K1', 'K4', 'K4b'))
     return a['launches']['K2'], dict(pipe=pipe, texture_gmain=gmain,
                                      texture=plain, texture_ada=a, video=b)
+
+
+def tree_of(module):
+    from next3d_tpu_torch.utils.weights import state_dict_to_params
+    return state_dict_to_params(module.state_dict())
+
+
+def trees_equal(got, want):
+    """Whether two parameter trees have the same names and equal arrays."""
+    from next3d_tpu_torch.utils.weights import params_to_state_dict
+    import numpy as np
+    a, b = params_to_state_dict(got), params_to_state_dict(want)
+    return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+class ResumeProbe:
+    """Wraps ``train/training_loop.py load_resume`` for the duration of a
+    ``with`` block: keeps the networks' trees just before and just after
+    the load, and the loop's ``step`` (its optimizers)."""
+
+    def __enter__(self):
+        from next3d_tpu_torch.train import training_loop
+        self.module, self.orig = training_loop, training_loop.load_resume
+        self.seen = {}
+
+        def probe(path, G, D, G_ema, step):
+            self.seen['before'] = {k: tree_of(m) for k, m in
+                                   (('G', G), ('D', D), ('G_ema', G_ema))}
+            out = self.orig(path, G, D, G_ema, step)
+            self.seen['after'] = {k: tree_of(m) for k, m in
+                                  (('G', G), ('D', D), ('G_ema', G_ema))}
+            self.seen.update(step=step, networks=(G, D, G_ema), state=out)
+            return out
+
+        training_loop.load_resume = probe
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.module.load_resume = self.orig
+
+
+def check_checkpoints(G, files, mesh, lms, device, card, kernels, ref,
+                      spread, inputs, cli_reenact_fps):
+    """Phase 16: checkpoint interop at the 512^2 FFHQ config, in a
+    temporary directory. (a) ``G`` (phase 6's flagship) written as a
+    reference-format Next3D .pkl (utils/checkpoint_cases.py: persistence-
+    wrapped modules, torch-tensor leaves, the reference's init_kwargs,
+    training_set_kwargs and augment_pipe, and a buffer the port does not
+    have), read by load_any_generator (timed) and loaded by load_generator,
+    against phase 10's ``ref`` on its ``inputs`` within its run-to-run
+    ``spread``; then ``reenact`` over 16 frames and ``gen-samples`` of one
+    seed from it, which must launch K1 and K4. (b) An EG3D-format .pkl
+    (G_ema with ``backbone``, ``superresolution`` and ``decoder`` of
+    ``G``, and a D of another seed): ``train --resume eg3d.pkl`` at phase
+    13's config on its dataset, batch 4, 4 batches in one tick; just
+    after the load (``load_resume``), G and G_ema equal the fresh init
+    with the donor's leaves wherever a name and a shape match through
+    eg3d_to_next3d, D the donor's, the optimizers empty; every phase runs,
+    K4 and its backward launch, every stat finite. (c) A JAX-layout format-1
+    snapshot of (b)'s networks and Adam states (optax's class names,
+    utils/checkpoint_cases.py write_jax_snapshot), resumed: the loaded
+    step, exp_avg and exp_avg_sq equal the source's; one batch more. Then a
+    snapshot with only params_G_ema (as phase 12 writes one; (b)'s
+    G_ema), resumed into (c)'s networks. (d) (b)'s TensorBoard events, read by the port's
+    read_scalars, equal its stats.jsonl's numeric fields as float32.
+    Returns the K1, K4 and K4 backward launches of each command and the
+    phase's summary."""
+    import numpy as np
+    from next3d_tpu_torch.cli import main as cli
+    from next3d_tpu_torch.cli.common import load_generator
+    from next3d_tpu_torch.nn.discriminator import DualDiscriminator
+    from next3d_tpu_torch.train.training_loop import load_resume
+    from next3d_tpu_torch.train.warm_start import (copy_matching_params,
+                                                   eg3d_to_next3d)
+    from next3d_tpu_torch.utils import checkpoint_cases
+    from next3d_tpu_torch.utils.checkpoint import (load_any_generator,
+                                                   save_snapshot)
+    from next3d_tpu_torch.utils.tensorboard import read_scalars
+    from next3d_tpu_torch.utils.weights import params_to_state_dict
+
+    root = os.path.join(files['root'], 'checkpoints')
+    os.makedirs(root)
+    obj, lms_path = files['obj'], os.path.splitext(files['obj'])[0] \
+        + '_kpt2d.txt'
+    summary, launches = {}, {}
+
+    # (a) a reference-format Next3D .pkl of phase 6's flagship
+    donor = tree_of(G)
+    init_kwargs = dict(G_KWARGS, num_fp16_res=0, conv_clamp=None,
+                       class_name='training.triplane.TriPlaneGenerator',
+                       topology_path='data/demo/head_template.obj')
+    pkl = os.path.join(root, 'next3d.pkl')
+    t0 = time.perf_counter()
+    checkpoint_cases.write_network_pkl(
+        pkl, {'G': None, 'G_ema': donor, 'D': None},
+        init_kwargs={'G_ema': init_kwargs},
+        buffers={'G_ema': {'dense_faces': np.arange(12, dtype=np.int64)}},
+        extra={'training_set_kwargs': {'resolution': 512, 'xflip': False},
+               'augment_pipe': None})
+    summary['pkl_write_s'] = time.perf_counter() - t0
+    summary['pkl_mb'] = os.path.getsize(pkl) / 2 ** 20
+    t0 = time.perf_counter()
+    params, kwargs = load_any_generator(pkl)
+    summary['pkl_load_s'] = time.perf_counter() - t0
+    if kwargs != init_kwargs or not trees_equal(
+            {k: v for k, v in params.items() if k != 'dense_faces'}, donor):
+        raise RuntimeError('the .pkl read back other weights or kwargs')
+    t0 = time.perf_counter()
+    loaded = load_generator(pkl, obj, device)
+    summary['pkl_generator_s'] = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = True
+    z, c, v = inputs
+    with torch.no_grad():
+        out = loaded(z, c, v, truncation_psi=0.7, truncation_cutoff=14,
+                     noise_mode='const')
+    torch.backends.cudnn.deterministic = False
+    err = max(float((out[k] - ref[k]).abs().max()) for k in ref)
+    summary['pkl_vs_phase6_max_abs'] = err
+    log(f'reference-format .pkl of the flagship ({summary["pkl_mb"]:.1f} '
+        f'MiB, torch-tensor leaves): written in {summary["pkl_write_s"]:.2f}'
+        f' s, read by load_any_generator in {summary["pkl_load_s"]:.2f} s, '
+        f'generator built and loaded in {summary["pkl_generator_s"]:.2f} s;'
+        f' against phase 6\'s at batch 4, deterministic cuDNN: max-abs '
+        f'{err:.3g} (run-to-run spread {spread:.3g}), on {card}')
+    if not err <= spread:
+        raise RuntimeError('the .pkl generator disagrees with phase 6\'s')
+    del loaded, out
+
+    drive = write_drive_dir(os.path.join(root, 'drive'), mesh, lms)
+    stats, counts = counted(lambda: cli.run([
+        'reenact', '--network', pkl, '--drive-root', drive, '--seeds', '0',
+        '--outdir', os.path.join(root, 'reenact'), '--topology-path', obj,
+        '--device', str(device)]), kernels)
+    launches['reenact .pkl'] = {k: counts[k] for k in ('K1', 'K4', 'K4b')}
+    summary['reenact_fps'] = stats['frames'] / stats['seconds_without_writes']
+    log(f'reenact from the .pkl: {stats["frames"]} frames, '
+        f'{summary["reenact_fps"]:.3f} f/s without the frame writes '
+        f'(phase 12, from a format-1 snapshot: {cli_reenact_fps:.3f}); '
+        f'launches {counts}; on {card}')
+    _, counts = counted(lambda: cli.run([
+        'gen-samples', '--network', pkl, '--seeds', '0', '--outdir',
+        os.path.join(root, 'samples'), '--obj-path', obj, '--lms-path',
+        lms_path, '--device', str(device)]), kernels)
+    launches['gen-samples .pkl'] = {k: counts[k] for k in ('K1', 'K4',
+                                                           'K4b')}
+    log(f'gen-samples from the .pkl, seed 0: launches {counts}')
+    if not os.path.getsize(os.path.join(root, 'samples', 'seed0000.png')):
+        raise RuntimeError('gen-samples from the .pkl wrote nothing')
+    for name in ('reenact .pkl', 'gen-samples .pkl'):
+        if min(launches[name]['K1'], launches[name]['K4']) <= 0:
+            raise RuntimeError(f'{name} did not launch K1 and K4')
+
+    # (b) an EG3D .pkl: train --resume eg3d.pkl, one tick of 4 batches
+    def argv(outdir, kimg, tick, resume):
+        return ['train', '--outdir', os.path.join(root, outdir), '--data',
+                files['data'], '--batch', '4', '--kimg', str(kimg),
+                '--tick', str(tick), '--snap', '100', '--topology-path', obj,
+                '--device', str(device), '--timing-every', '1', '--resume',
+                resume]
+
+    eg3d_pkl = os.path.join(root, 'eg3d.pkl')
+    opts = vars(cli.build_parser().parse_args(argv('warm', 0.016, 0.016,
+                                                   eg3d_pkl)))
+    D = DualDiscriminator(
+        c_dim=25, img_resolution=opts['resolution'], img_channels=3,
+        channel_base=opts['channel_base'], channel_max=opts['channel_max'],
+        epilogue_kwargs=dict(mbstd_group_size=opts['mbstd_group']),
+        generator=torch.Generator().manual_seed(SEED + 5))
+    eg3d = {k: donor[k] for k in ('backbone', 'superresolution', 'decoder')}
+    donor_D = tree_of(D)
+    del D
+    checkpoint_cases.write_network_pkl(
+        eg3d_pkl, {'G': eg3d, 'G_ema': eg3d, 'D': donor_D},
+        init_kwargs={'G_ema': dict(G_KWARGS, class_name='training.triplane.'
+                                   'TriPlaneGenerator')})
+
+    with ResumeProbe() as seen:
+        warm, result = train_run(
+            'train --resume eg3d.pkl, 4 batches of 4 at 512^2',
+            argv('warm', 0.016, 0.016, eg3d_pkl), kernels, card,
+            expect=('K1', 'K4', 'K4b'))
+    launches['train --resume eg3d.pkl'] = warm['launches']
+    before, after = seen['before'], seen['after']
+    imported = eg3d_to_next3d(eg3d)
+    for name in ('G', 'G_ema'):
+        want = copy_matching_params(before[name], imported)
+        if not trees_equal(after[name], want):
+            raise RuntimeError(f'the warm start of {name} is not the init '
+                               f'with the donor\'s matching leaves')
+    flat, flat_imported = (params_to_state_dict(x)
+                           for x in (after['G'], imported))
+    seeded = sum(1 for k, x in flat.items()
+                 if k.split('.')[0] in ('texture_backbone', 'mouth_backbone',
+                                        'neural_blending')
+                 and k in flat_imported
+                 and np.array_equal(x, flat_imported[k]))
+    if not trees_equal(after['D'], donor_D) or seen['state'] != {} \
+            or seeded <= 0:
+        raise RuntimeError('the warm start of D, the loop state or the '
+                           'seeded backbones are wrong')
+    summary['warm_start'] = dict(
+        seeded_leaves=seeded, img_s=warm['images_per_second'],
+        peak_device_mem_gb=warm['peak_device_mem_gb'],
+        phase_ms_first_batch=warm['phase_ms_first_batch'],
+        launches=warm['launches'])
+    log(f'warm start from eg3d.pkl: {seeded} leaves of the texture, mouth '
+        f'and blending networks seeded from the EG3D backbone, the rest '
+        f'the init; D the donor\'s; on {card}')
+
+    # (d) its TensorBoard scalars against its stats.jsonl
+    run_dir = os.path.join(root, 'warm')
+    (events,) = [f for f in os.listdir(run_dir)
+                 if f.startswith('events.out.tfevents.')]
+    with open(os.path.join(run_dir, 'stats.jsonl')) as f:
+        records = [json.loads(line) for line in f]
+    want = [(int(round(r['kimg'] * 1000)) // 1000, k, float(np.float32(x)))
+            for r in records for k, x in r.items()
+            if isinstance(x, (int, float))]
+    got = read_scalars(os.path.join(run_dir, events))
+    summary['tensorboard_scalars'] = len(got)
+    log(f'TensorBoard: {len(got)} scalars read back, equal to stats.jsonl: '
+        f'{got == want}')
+    if got != want:
+        raise RuntimeError('the TensorBoard scalars differ from stats.jsonl')
+
+    # (c) a JAX-layout snapshot of (b)'s networks and Adam states
+    step = seen['step']
+    Gw, Dw, G_emaw = result['G'], result['D'], result['G_ema']
+    adam = {'G': checkpoint_cases.adam_moments(step.opt_G, Gw),
+            'D': checkpoint_cases.adam_moments(step.opt_D, Dw)}
+    jax_snap = os.path.join(root, 'jax-layout.pkl')
+    g_ema_tree = tree_of(G_emaw)
+    checkpoint_cases.write_jax_snapshot(
+        jax_snap, params_G=tree_of(Gw), params_D=tree_of(Dw),
+        params_G_ema=g_ema_tree, adam_G=adam['G'], adam_D=adam['D'],
+        cur_nimg=16, ada_p=0.0)
+    del result, Gw, Dw, G_emaw, step, seen
+    with ResumeProbe() as seen:
+        resumed, _ = train_run(
+            'train --resume of a JAX-layout snapshot, 1 batch of 4',
+            argv('from_jax', 0.020, 0.004, jax_snap), kernels, card,
+            expect=('K1', 'K4', 'K4b'))
+    launches['train --resume jax-layout.pkl'] = resumed['launches']
+    step = seen['step']
+    Gr, Dr, _ = seen['networks']
+    moved = 0
+    for opt, module, name in ((step.opt_G, Gr, 'G'), (step.opt_D, Dr, 'D')):
+        count, mu, nu = adam[name]
+        mu, nu = params_to_state_dict(mu), params_to_state_dict(nu)
+        for pname, p in module.named_parameters():
+            if p not in opt.state:
+                continue
+            moved += 1
+            if not int(opt.state[p]['step']) > count:   # a batch ran since
+                raise RuntimeError(f'{name}.{pname}: step '
+                                   f'{opt.state[p]["step"]} after {count}')
+    if seen['state'] != {'cur_nimg': 16, 'ada_p': 0.0} or not moved:
+        raise RuntimeError(f'the JAX-layout resume read {seen["state"]}')
+    # the moments as loaded, before the batch: load them again on (c)'s
+    # networks and hold them to the source
+    load_resume(jax_snap, Gr, Dr, seen['networks'][2], step)
+    for opt, module, name in ((step.opt_G, Gr, 'G'), (step.opt_D, Dr, 'D')):
+        count, mu, nu = adam[name]
+        mu, nu = params_to_state_dict(mu), params_to_state_dict(nu)
+        for pname, p in module.named_parameters():
+            if p in opt.state and not (
+                    int(opt.state[p]['step']) == count
+                    and np.array_equal(opt.state[p]['exp_avg'].cpu().numpy(),
+                                       mu[pname])
+                    and np.array_equal(
+                        opt.state[p]['exp_avg_sq'].cpu().numpy(),
+                        nu[pname])):
+                raise RuntimeError(f'{name}.{pname}: Adam state differs '
+                                   f'from the JAX-layout snapshot\'s')
+    log(f'JAX-layout snapshot resumed: cur_nimg 16, {moved} Adam states '
+        f'equal to the source (step {adam["G"][0]}), one batch more at '
+        f'{resumed["images_per_second"]:.3f} img/s')
+    g_ema_only = os.path.join(root, 'g_ema.pkl')
+    save_snapshot(g_ema_only, params_G_ema=g_ema_tree)
+    state = load_resume(g_ema_only, *seen['networks'], step)
+    if state != {'cur_nimg': 0} or not trees_equal(
+            tree_of(seen['networks'][2]), g_ema_tree):
+        raise RuntimeError('the params_G_ema-only snapshot did not resume')
+    log('a params_G_ema-only snapshot resumes: G_ema loaded, cur_nimg 0')
+    summary['jax_layout_resume'] = dict(
+        adam_states=moved, count=adam['G'][0],
+        img_s=resumed['images_per_second'])
+    del seen, step, Gr, Dr, state
+    return launches, summary
 
 
 class LaunchCount:
@@ -1936,8 +2257,9 @@ def main():
             del Gi
         torch.backends.cudnn.deterministic = False
 
-        cli_launches = check_clis(G, G_KWARGS, mesh, head_lms, device, card,
-                                  kernels, ref, spread, (z[4], c[4], v[4]))
+        cli_launches, cli_reenact_fps = check_clis(
+            G, G_KWARGS, mesh, head_lms, device, card, kernels, ref, spread,
+            (z[4], c[4], v[4]))
 
     train_tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
     try:
@@ -1957,6 +2279,12 @@ def main():
         del models, fp32_outs, outs, outs_t, T
         train_launches['K2'], variants = check_training_variants(
             files, mesh, device, card, kernels)
+        t0 = time.time()
+        ckpt_launches, checkpoints = check_checkpoints(
+            G, files, mesh, head_lms, device, card, kernels, ref, spread,
+            (z[4], c[4], v[4]), cli_reenact_fps)
+        checkpoints['wall_s'] = time.time() - t0
+        log(f'phase 16: {checkpoints["wall_s"]:.1f} s')
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
 
@@ -1993,9 +2321,14 @@ def main():
                                      cli_launches.items()}
         if k in ('K1', 'K2', 'K4', 'K4b'):
             entry['train_launches'] = train_launches[k]
+        if k in ('K1', 'K4', 'K4b'):
+            # phase 16's commands: from a reference .pkl, and the resumes
+            entry['checkpoint_launches'] = {cmd: n[k] for cmd, n in
+                                            ckpt_launches.items()}
     log(json.dumps({'train': train}))
     log(json.dumps({'train_variants': variants}))
     log(json.dumps({'bf16': bf16}))
+    log(json.dumps({'checkpoints': checkpoints}))
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

@@ -191,13 +191,17 @@ def parse_range(s) -> list:
 
 
 def load_generator(network_path, topology_path, device):
-    """The generator of a snapshot, its weights loaded, on ``device``."""
-    from ..utils.checkpoint import load_any_generator
+    """The generator of a checkpoint (a format-1 snapshot or a reference
+    .pkl, ``utils/checkpoint.py read_generator``), its weights loaded, on
+    ``device``. A reference .pkl's entries that the port's generator does
+    not have are dropped and named; a missing one raises."""
+    from ..utils.checkpoint import read_generator
     from ..utils.weights import load_jax_params
-    params, init_kwargs = load_any_generator(network_path)
+    params, init_kwargs, source = read_generator(network_path)
     G = build_generator_from_kwargs(init_kwargs, topology_path,
                                     device=device)
-    return load_jax_params(G, params)
+    return load_jax_params(G, params,
+                           drop_unexpected=source == 'reference')
 
 
 def frame_uint8(img):

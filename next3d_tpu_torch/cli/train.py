@@ -20,7 +20,10 @@ expression label (``DualLabelDualDiscriminator``), so the dataset's labels
 are 75 wide. A ``--resume`` changes the schedules as JAX's does
 (reference train_next3d.py:394-401): ADA reacts over 100 kimg instead of
 500, the EMA has no ramp-up and, unless ``--resume-blur``, the blur and
-the conditioning-swap fades are off.
+the conditioning-swap fades are off. ``--resume`` takes a format-1
+snapshot of either package's loop or a reference network pickle, such as
+EG3D's ``ffhqrebalanced512-64.pkl`` of the reference's recipe, which
+warm-starts the networks (``train/training_loop.py load_resume``).
 
 Float32 without TF32 throughout, as the JAX package trains at float32.
 
@@ -123,15 +126,15 @@ def add_options(p, bool_type):
 
 
 def _unported(opts):
-    for asked, what in (
+    for asked, what, item in (
             (opts['metrics'] not in (None, '', 'none', 'None'),
-             'in-training metrics (--metrics)'),
+             'in-training metrics (--metrics)', 5),
             ((opts['num_devices'] or 1) > 1, 'training on more than one '
-             'device (--gpus)')):
+             'device (--gpus)', 7)):
         if asked:
             raise NotImplementedError(f'{what} is not ported to '
                                       f'next3d_tpu_torch yet (ROADMAP.md '
-                                      f'Queue 1 item 5)')
+                                      f'Queue 1 item {item})')
 
 
 def build_training(opts, device):

@@ -47,7 +47,7 @@ from ..render.mesh import angle2matrix, batch_orth_proj, face_vertices
 from ..render.rasterizer import (rasterize_uv_with_alpha,
                                  required_patch_size, resolve_impl)
 from ..render.ray_sampler import sample_rays
-from ..render.renderer import ImportanceRenderer, layout_planes
+from ..render.renderer import ImportanceRenderer, layout_for
 from ..utils.obj_io import ObjMesh, load_obj
 from .osg_decoder import OSGDecoder
 
@@ -409,9 +409,8 @@ class TriPlaneGenerator(nn.Module):
         decodes its chunks from them. ``generator`` draws the renderer's
         ``density_noise``, where that option is set."""
         return self.renderer.run_model(
-            layout_planes(planes, self.rendering_kwargs['gather_bf16']),
-            self.decoder, coordinates, directions, self.rendering_kwargs,
-            generator)
+            layout_for(planes, self.rendering_kwargs), self.decoder,
+            coordinates, directions, self.rendering_kwargs, generator)
 
     # ------------------------------------------------------------------ forward
     def forward(self, z, c, v, truncation_psi=1, truncation_cutoff=None,

@@ -12,6 +12,17 @@ Tri-plane sampling is kernel K4 (``ops/triplane.py``, which also holds
 channels-last once per forward and both passes sample them. With the
 ``gather_bf16`` option the layout pass stores float32 planes in bf16 (JAX
 :50-65, 261); the samples come back float32.
+
+The ``fused_plane_sampling`` option routes the JAX package's sampling to
+``sample_from_planes_fused`` (JAX :245-257), its only route into its TPU
+kernel ``triplane_sample_tiles``, with ``fused_precision`` the dot
+precision of the TPU's matrix unit ('bf16' or 'highest';
+``fused_tile_samples`` and ``fused_interpret`` are the kernel's tiling and
+its CPU mode). Off the TPU both precisions compute the float32 bilinear
+sample, and that path samples the planes as they are, without
+``gather_bf16``'s cast. The port samples through K4 on every path, so the
+option selects the same function here: the float32 sample of the planes
+as they are. It refuses what the JAX path refuses (``check_fused_options``).
 """
 
 from __future__ import annotations
@@ -37,6 +48,44 @@ def sample_from_planes(plane_features, coordinates, box_warp,
     :62-72)."""
     return triplane_sample(layout_planes(plane_features, gather_bf16),
                            coordinates, box_warp)
+
+
+FUSED_PRECISIONS = ('bf16', 'highest')
+
+
+def check_fused_options(planes, options):
+    """Raise ``ValueError`` for the ``fused_*`` options and planes
+    (N, 3, C, H, W) that JAX's fused path refuses: planes that are not
+    square (JAX ops/pallas_triplane.py:252), a precision other than 'bf16'
+    and 'highest' (:200-202), a plane row of W * C values that is not a
+    multiple of 128 lanes (:205-214), a tile that is not a positive number
+    of samples (:195-196)."""
+    _, _, C, H, W = planes.shape
+    if H != W:
+        raise ValueError(f'fused_plane_sampling needs square planes, got '
+                         f'{H}x{W}')
+    precision = options.get('fused_precision', 'bf16')
+    if precision not in FUSED_PRECISIONS:
+        raise ValueError(f'fused_precision {precision!r} is not one of '
+                         f'{FUSED_PRECISIONS}')
+    if (W * C) % 128:
+        raise ValueError(f'fused_plane_sampling needs W * C a multiple of '
+                         f'128, got {W} * {C}')
+    tile = options.get('fused_tile_samples', 1024)
+    if not (isinstance(tile, int) and tile > 0):
+        raise ValueError(f'fused_tile_samples {tile!r} is not a positive '
+                         f'number of samples')
+
+
+def layout_for(planes, options):
+    """planes (N, 3, C, H, W) laid out for K4 as the rendering ``options``
+    ask: stored in bf16 under ``gather_bf16``, except under
+    ``fused_plane_sampling``, whose options are checked."""
+    fused = options.get('fused_plane_sampling', False)
+    if fused:
+        check_fused_options(planes, options)
+    return layout_planes(planes,
+                         options.get('gather_bf16', False) and not fused)
 
 
 def _uniform(generator, shape, device):
@@ -158,7 +207,7 @@ class ImportanceRenderer:
         """planes (N, 3, C, H, W) -> (rgb (N, R, C), depth (N, R, 1),
         weight_sum (N, R, 1))."""
         opts = rendering_options
-        planes_cl = layout_planes(planes, opts.get('gather_bf16', False))
+        planes_cl = layout_for(planes, opts)
         if opts['ray_start'] == opts['ray_end'] == 'auto':
             ray_start, ray_end = math_utils.get_ray_limits_box(
                 ray_origins, ray_directions, box_side_length=opts['box_warp'])

@@ -96,7 +96,7 @@ class StyleGAN2Loss:
         if cfg.remat_synthesis:
             raise NotImplementedError(
                 'remat_synthesis is not ported to next3d_tpu_torch yet '
-                '(ROADMAP.md Queue 1 item 5, training)')
+                '(ROADMAP.md Queue 1 item 6)')
         self.G = G
         self.D = D
         self.cfg = cfg

@@ -26,8 +26,12 @@ gathered since the last move, so a resume continues the controller too.
 
 Per-phase timing (``Timing/<phase>``, seconds, a synchronized wall time)
 is sampled every ``timing_sample_every`` batches, as in the JAX package.
-In-training metrics, the TensorBoard writer and the abort and progress
-callbacks are not ported (the ``train`` command refuses ``--metrics``).
+Each tick's numeric fields also go to TensorBoard scalars in the run
+directory (``utils/tensorboard.py``, JAX :128-132, :240-245) at the global
+step ``cur_nimg // 1000``. A resume also takes the JAX loop's snapshots and
+the reference's network pickles (``load_resume``). In-training metrics and
+the abort and progress callbacks are not ported (the ``train`` command
+refuses ``--metrics``).
 """
 
 from __future__ import annotations
@@ -43,8 +47,10 @@ import torch
 
 from ..data.dataset import make_data_iterator
 from .augment import ada_update_p
-from ..utils.checkpoint import (load_optimizer_state, load_snapshot,
-                                optimizer_state, save_snapshot)
+from ..utils.checkpoint import (is_snapshot, load_optimizer_state,
+                                load_snapshot, optimizer_state, save_snapshot)
+from ..utils.pkl_import import network_data
+from ..utils.tensorboard import SummaryWriter
 from ..utils.weights import load_jax_params, state_dict_to_params
 
 
@@ -125,23 +131,16 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
     ada_p = float(augment_p)
     ada_signs = []  # Loss/signs/real since the controller's last move
     if resume_path:
-        snap = load_snapshot(resume_path)
-        if snap.get('format_version') != 1:
-            raise NotImplementedError(
-                f'{resume_path} is not a format-1 snapshot; warm starts from '
-                f'a reference .pkl are not ported (ROADMAP.md Queue 1 item 5)')
-        for module, key in ((G, 'params_G'), (D, 'params_D'),
-                            (G_ema, 'params_G_ema')):
-            load_jax_params(module, snap[key])
-        load_optimizer_state(step.opt_G, snap['opt_state_G'], named_G)
-        load_optimizer_state(step.opt_D, snap['opt_state_D'], named_D)
-        extra = snap.get('extra') or {}
-        cur_nimg = int(snap['cur_nimg'])
-        batch_idx, tick = int(extra['batch_idx']), int(extra['tick'])
-        generator.set_state(torch.from_numpy(np.array(snap['rng_key'])))
-        cond_rnd.set_state(extra['cond_rnd_state'])
-        ada_p = float(extra.get('ada_p', ada_p))
-        ada_signs = list(extra.get('ada_signs', []))
+        resumed = load_resume(resume_path, G, D, G_ema, step)
+        cur_nimg = resumed.get('cur_nimg', cur_nimg)
+        batch_idx = resumed.get('batch_idx', batch_idx)
+        tick = resumed.get('tick', tick)
+        if 'rng_state' in resumed:
+            generator.set_state(resumed['rng_state'])
+        if 'cond_rnd_state' in resumed:
+            cond_rnd.set_state(resumed['cond_rnd_state'])
+        ada_p = resumed.get('ada_p', ada_p)
+        ada_signs = resumed.get('ada_signs', ada_signs)
     data = make_data_iterator(dataset, batch_size, seed=seed,
                               prefetch=workers, start=batch_idx * batch_size)
 
@@ -152,6 +151,7 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
         with open(os.path.join(run_dir, 'training_options.json'), 'wt') as f:
             json.dump(config, f, indent=2, default=str)
     stats_jsonl = open(os.path.join(run_dir, 'stats.jsonl'), 'at')
+    tb_writer = SummaryWriter(run_dir)
     tick_start_nimg = cur_nimg
     tick_start_time = start_time = time.time()
     try:
@@ -225,6 +225,11 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
             records.append(record)
             stats_jsonl.write(json.dumps(record) + '\n')
             stats_jsonl.flush()
+            for k, val in record.items():
+                if isinstance(val, (int, float)):
+                    tb_writer.add_scalar(k, val,
+                                         global_step=int(cur_nimg // 1e3))
+            tb_writer.flush()
             stats.reset()
             timer.reset()
 
@@ -254,9 +259,73 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
                 break
     finally:
         stats_jsonl.close()
+        tb_writer.close()
         if hasattr(data, 'close'):
             data.close()
     return {'cur_nimg': cur_nimg, 'ticks': records, 'ada_p': ada_p}
+
+
+def load_resume(path, G, D, G_ema, step):
+    """Load the checkpoint at ``path`` for a resume into the networks and
+    ``step``'s optimizers; returns the loop's state that it holds (the
+    keys ``cur_nimg``, ``ada_p``, ``batch_idx``, ``tick``, ``rng_state``,
+    ``cond_rnd_state``, ``ada_signs`` where it has them). Three kinds of
+    file, as the JAX loop (JAX :93-120):
+
+    - a format-1 snapshot of the port's loop: everything, so that the run
+      continues exactly;
+    - a format-1 snapshot of the JAX loop: each parameter tree that is not
+      None, each optimizer state that is not None (optax's adam moments,
+      ``utils/checkpoint.py load_optimizer_state``), ``cur_nimg`` and
+      ``extra['ada_p']``. Its ``rng_key`` is a JAX key, not a torch
+      generator's state, so the generator and the conditioning sampler
+      start from the seed, as JAX's loop does (JAX :88); so do the batch
+      index and the tick;
+    - a reference network pickle (a Next3D or EG3D .pkl): a warm start.
+      ``G_ema``'s weights, through ``eg3d_to_next3d``, go into both G and
+      G_ema, and ``D``'s into D, wherever a name and a shape match
+      (``copy_matching_params``); the optimizers stay fresh and cur_nimg
+      0."""
+    from .warm_start import copy_matching_params, eg3d_to_next3d
+
+    snap = load_snapshot(path)
+    if not is_snapshot(snap):
+        snap = network_data(snap)
+        if not isinstance(snap, dict) or (snap.get('G_ema') is None
+                                          and snap.get('D') is None):
+            raise ValueError(f'{path} is neither a format-1 snapshot nor a '
+                             f'reference network pickle with a G_ema or a D')
+        if snap.get('G_ema') is not None:
+            imported = eg3d_to_next3d(state_dict_to_params(
+                snap['G_ema'].state_dict()))
+            for module in (G, G_ema):
+                load_jax_params(module, copy_matching_params(
+                    state_dict_to_params(module.state_dict()), imported))
+        if snap.get('D') is not None:
+            load_jax_params(D, copy_matching_params(
+                state_dict_to_params(D.state_dict()),
+                state_dict_to_params(snap['D'].state_dict())))
+        return {}
+    for module, key in ((G, 'params_G'), (D, 'params_D'),
+                        (G_ema, 'params_G_ema')):
+        if snap.get(key):
+            load_jax_params(module, snap[key])
+    for optimizer, module, key in ((step.opt_G, G, 'opt_state_G'),
+                                   (step.opt_D, D, 'opt_state_D')):
+        if snap.get(key) is not None:
+            load_optimizer_state(optimizer, snap[key],
+                                 dict(module.named_parameters()))
+    extra = snap.get('extra') or {}
+    out = {'cur_nimg': int(snap.get('cur_nimg', 0))}
+    if 'ada_p' in extra:
+        out['ada_p'] = float(extra['ada_p'])
+    if 'batch_idx' in extra:   # the port's own loop wrote it
+        out.update(
+            batch_idx=int(extra['batch_idx']), tick=int(extra['tick']),
+            rng_state=torch.from_numpy(np.array(snap['rng_key'])),
+            cond_rnd_state=extra['cond_rnd_state'],
+            ada_signs=list(extra.get('ada_signs', [])))
+    return out
 
 
 @torch.no_grad()

@@ -6,7 +6,9 @@ path component per dict level, so flattening a tree with
 state_dict with ``state_dict_to_params`` gives a JAX tree. Static FIR
 filters are non-persistent buffers that the port builds itself, so they
 are neither expected nor loaded, and a state_dict that carries them (a
-reference checkpoint's) drops them.
+reference checkpoint's) drops them. The bridge carries a reference
+checkpoint's state_dict (``utils/pkl_import.py``) and the moments of a JAX
+snapshot's optax states (``utils/checkpoint.py``) by the same names.
 """
 
 from __future__ import annotations
@@ -51,13 +53,24 @@ def state_dict_to_params(state_dict):
     return params
 
 
-def load_jax_params(module, params):
+def load_jax_params(module, params, drop_unexpected=False):
     """Load a JAX param tree (nested dicts of numpy arrays) into ``module``.
 
     Raises on a missing or unexpected key and on a shape mismatch
-    (``load_state_dict(strict=True)``). Returns ``module``.
+    (``load_state_dict(strict=True)``). With ``drop_unexpected``, the keys
+    that ``module`` does not have are dropped instead, and their names
+    printed: the JAX model reads only the names it needs, so a reference
+    checkpoint's extra entries are ignored there too. A missing key or a
+    shape that differs still raises. Returns ``module``.
     """
     flat = params_to_state_dict(params)
+    if drop_unexpected:
+        known = module.state_dict()
+        dropped = sorted(k for k in flat if k not in known)
+        if dropped:
+            print(f'{type(module).__name__}: dropped {len(dropped)} entries '
+                  f'it does not have: {dropped}', flush=True)
+        flat = {k: v for k, v in flat.items() if k in known}
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
              for k, v in flat.items()}
     module.load_state_dict(state, strict=True)

@@ -252,7 +252,8 @@ def _assert_trees_equal(got, want):
 def test_snapshots_round_trip_between_the_packages(tmp_path):
     """A snapshot saved by the JAX package loads in the port, and one saved
     by the port loads in the JAX package, with equal trees and kwargs; the
-    port refuses any other file."""
+    port refuses a file that is neither a snapshot nor a reference network
+    pickle."""
     mesh, _ = synthetic_head()
     port = common.build_generator_from_kwargs(G_KWARGS, mesh, device='cpu')
     tree = weights.state_dict_to_params(port.state_dict())
@@ -278,5 +279,5 @@ def test_snapshots_round_trip_between_the_packages(tmp_path):
         == jax_checkpoint.load_snapshot(str(tmp_path / 'port.pkl'))['cur_nimg']
 
     (tmp_path / 'other.pkl').write_bytes(b'not a snapshot')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 1'):
+    with pytest.raises(ValueError, match='neither a format-1 snapshot'):
         checkpoint.load_any_generator(str(tmp_path / 'other.pkl'))

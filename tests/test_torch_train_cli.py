@@ -9,6 +9,7 @@ each run and resumed; the command's options against the JAX click
 command's, and what each configuration builds against what the JAX
 command builds; what is not ported raises."""
 
+import json
 import os
 import pickle
 
@@ -20,12 +21,14 @@ import dataclasses
 
 from next3d_tpu.cli import train as jax_train
 from next3d_tpu.train import training_loop as jax_training_loop
+from next3d_tpu.utils.tensorboard import read_scalars
 from next3d_tpu_torch.cli import main as cli
 from next3d_tpu_torch.cli import train as port_train
 from next3d_tpu_torch.cli.common import camera_label
 from next3d_tpu_torch.models.triplane_texture import TriPlaneTextureGenerator
 from next3d_tpu_torch.utils.checkpoint import (load_optimizer_state,
                                                load_snapshot)
+from next3d_tpu_torch.utils.checkpoint_cases import write_jax_snapshot
 from next3d_tpu_torch.utils.synthetic_head import (save_clip_dataset,
                                                    save_dataset, save_head,
                                                    synthetic_head)
@@ -96,6 +99,22 @@ def _opts(argv):
     return opts
 
 
+def _assert_events_match_stats(run_dir):
+    """The run's TensorBoard events file, read by the JAX package's
+    read_scalars, holds every numeric field of each stats.jsonl record at
+    the global step cur_nimg // 1000, as float32 (JAX's loop :240-245)."""
+    (events,) = [f for f in os.listdir(run_dir)
+                 if f.startswith('events.out.tfevents.')]
+    with open(os.path.join(run_dir, 'stats.jsonl')) as f:
+        records = [json.loads(line) for line in f]
+    want = [(int(round(r['kimg'] * 1000)) // 1000, k, float(np.float32(v)))
+            for r in records for k, v in r.items()
+            if isinstance(v, (int, float))]
+    assert {k for _, k, _ in want} >= {'tick', 'kimg', 'Loss/G/loss',
+                                       'Loss/D/reg', 'Timing/Gmain'}
+    assert read_scalars(os.path.join(run_dir, events)) == want
+
+
 @pytest.mark.usefixtures('one_thread')
 def test_train_resumes_bit_exact(files):
     """Three batches at once (a tick each), against two (ticks 0 and 1, a
@@ -103,12 +122,14 @@ def test_train_resumes_bit_exact(files):
     through the loop with the uninterrupted run's schedules: G, D and G_ema
     equal bit for bit, and the resumed run continues cur_nimg and the tick
     count. Batch 0 runs all four phases, its stats are finite, and the
-    third batch moved each network. (A resume through the command changes
+    third batch moved each network. The run's TensorBoard scalars equal its
+    stats.jsonl. (A resume through the command changes
     the schedules as the JAX command does, EMA without ramp-up and no blur:
     ``test_options_build_what_the_jax_command_builds``; the command's
     resumes run in ``test_train_variant_runs_and_resumes``.)"""
     whole = cli.run(_argv(files, 'whole', 0.003))
     assert whole['cur_nimg'] == 3 and len(whole['ticks']) == 3
+    _assert_events_match_stats(str(files[0] / 'whole'))
     first = whole['ticks'][0]
     for key in ('Loss/G/loss', 'Loss/G/reg', 'Loss/D/loss', 'Loss/D/reg',
                 'Grad/Gmain/norm', 'Grad/Greg/norm', 'Grad/Dmain/norm',
@@ -306,14 +327,37 @@ def test_unported_options_raise(files, extra):
 
 
 def test_optax_state_does_not_load():
-    """A JAX snapshot's optax state raises rather than restart the Adam
-    moments."""
+    """An optimizer state of neither the port's structure nor the optax
+    adam structure of the JAX package's make_optimizer raises, naming
+    both, rather than restart the Adam moments (an optax adam state loads:
+    tests/test_torch_resume_jax.py)."""
     p = torch.nn.Parameter(torch.zeros(3))
     opt = torch.optim.Adam([p])
     optax_like = ({'count': np.zeros(()), 'mu': {'w': np.zeros(3)},
                    'nu': {'w': np.zeros(3)}}, {})
-    with pytest.raises(NotImplementedError, match='optax'):
+    with pytest.raises(ValueError, match='optax'):
         load_optimizer_state(opt, optax_like, {'w': p})
-    with pytest.raises(NotImplementedError, match='optax'):
+    with pytest.raises(ValueError, match='optax'):
         load_optimizer_state(opt, pickle.loads(pickle.dumps(
             {'kind': 'optax.adam', 'state': {}})), {'w': p})
+
+
+def test_optax_state_loads(tmp_path):
+    """The optax adam state of a JAX loop's snapshot, as
+    utils/checkpoint_cases.py writes one under optax's class names, loads
+    into torch Adam: count as each parameter's step, mu and nu as its
+    moments."""
+    p = torch.nn.Parameter(torch.zeros(3))
+    opt = torch.optim.Adam([p])
+    mu = {'w': np.arange(3, dtype=np.float32)}
+    nu = {'w': np.full(3, 0.5, np.float32)}
+    path = str(tmp_path / 'jax.pkl')
+    write_jax_snapshot(path, params_G={'w': np.zeros(3, np.float32)},
+                       adam_G=(7, mu, nu))
+    saved = load_snapshot(path)['opt_state_G']
+    assert type(saved[0]).__name__ == 'ScaleByAdamState'
+    load_optimizer_state(opt, saved, {'w': p})
+    state = opt.state[p]
+    assert float(state['step']) == 7.0
+    assert torch.equal(state['exp_avg'], torch.from_numpy(mu['w']))
+    assert torch.equal(state['exp_avg_sq'], torch.from_numpy(nu['w']))

@@ -92,9 +92,10 @@ def test_obj_io_matches_jax_package(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port (its CLIs and its training path included,
-    the augment pipe and the video dataset too),
+    the augment pipe and the video dataset too, and the checkpoint readers),
     and a generator built from it, pull in neither JAX nor any module of
-    the JAX package, nor click or PIL, which the card machine lacks."""
+    the JAX package, nor optax, click or PIL, which the card machine
+    lacks."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import next3d_tpu_torch\n"
@@ -107,7 +108,13 @@ def test_port_imports_no_jax():
         "'next3d_tpu_torch.train.training_loop', "
         "'next3d_tpu_torch.data.dataset', 'next3d_tpu_torch.cli.train', "
         "'next3d_tpu_torch.train.augment', "
-        "'next3d_tpu_torch.data.video_dataset'} "
+        "'next3d_tpu_torch.data.video_dataset', "
+        "'next3d_tpu_torch.utils.easydict', "
+        "'next3d_tpu_torch.utils.pkl_import', "
+        "'next3d_tpu_torch.utils.legacy', "
+        "'next3d_tpu_torch.train.warm_start', "
+        "'next3d_tpu_torch.utils.tensorboard', "
+        "'next3d_tpu_torch.utils.checkpoint_cases'} "
         "<= set(names), names\n"
         "from next3d_tpu_torch.models import (triplane_next3d,"
         " triplane_texture)\n"
@@ -122,14 +129,15 @@ def test_port_imports_no_jax():
         "'SuperresolutionHybrid2X'})\n"
         "import next3d_tpu_torch.cli.main\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'next3d_tpu', 'click', 'PIL'))\n"
+        "('jax', 'jaxlib', 'next3d_tpu', 'click', 'PIL', 'optax'))\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, '-c', code], check=True, timeout=120)
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py names no module of JAX or of the JAX package, and
-    importing it and loading the head through it pulls in none."""
+    """chip_smoke.py names no module of JAX, of optax or of the JAX
+    package, and importing it and loading the head through it pulls in
+    none."""
     root = Path(__file__).resolve().parents[1]
     tree = ast.parse((root / 'chip_smoke.py').read_text())
     names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
@@ -139,13 +147,13 @@ def test_chip_smoke_imports_only_the_port():
     assert 'next3d_tpu_torch.utils.obj_io' in names
     for name in names:
         top = name.split('.')[0]
-        assert top not in ('jax', 'jaxlib', 'next3d_tpu'), name
+        assert top not in ('jax', 'jaxlib', 'next3d_tpu', 'optax'), name
     code = ("import sys\n"
             "import chip_smoke\n"
             "mesh, lms = chip_smoke.load_head()\n"
             "assert mesh.verts.shape == (5023, 3) and lms.shape == (68, 3)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'next3d_tpu'))\n"
+            "('jax', 'jaxlib', 'next3d_tpu', 'optax'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, '-c', code], check=True, timeout=120,
                    cwd=root, env={**os.environ, 'NEXT3D_TOPOLOGY': ''})
