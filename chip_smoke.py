@@ -148,7 +148,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (d) (b)'s TensorBoard scalars equal to its stats.jsonl. It logs the
      .pkl load time, reenact f/s from the .pkl beside phase 12's, the
      warm-started run's img/s and peak memory, beside the card's name and
-     power limit, and a {"checkpoints": ...} line.
+     power limit, and a {"checkpoints": ...} line;
+ 17. metrics, at the 512^2 FFHQ config in phase 13's temporary directory
+     (check_metrics), on a dataset of 64 of phase 6's flagship's images
+     (write_metric_data): (a) the port's Inception-2015 graph
+     (metrics/inception.py) of seeded weights on the card against the CPU
+     on the same uint8 batches at 512^2 and 128^2, TF32 off (features
+     within INCEPTION_FEATURE_REL of the largest, IS probabilities within
+     INCEPTION_PROBS_TOL), scripted by torch.jit.script into a TorchScript
+     file with the reference detector's calling convention that
+     NEXT3D_INCEPTION_PATH then names, converted and attested on the card;
+     the detector's img/s at batch 16 alone and with its features returned
+     to the host; (b) ``calc-metrics --metrics fid2k_full --batch 16`` on
+     a format-1 snapshot of phase 6's flagship: a finite record in
+     metric-fid2k_full.jsonl, its wall time, peak memory and K1 and K4
+     launches; the feature loop's img/s (320 images at batch 16) beside
+     the generator's alone; KID, PR and IS over 256 generated images, each
+     finite; (c) ``train --metrics fid2k_full`` at phase 13's config, two
+     ticks of one batch of 4 with a snapshot after the second: its record
+     in metric-fid2k_full.jsonl (the hook prints a failure and trains on,
+     so the record decides), finite, with its launches. It ends with a
+     {"metrics": ...} line.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -192,11 +212,11 @@ The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
 the in-repo synthetic head. The run uses no JAX. It ends with a
 {"train": ...} line, a {"train_variants": ...} line, a {"bf16": ...}
-line, a {"checkpoints": ...} line, the card line, a JSON object with one
-entry per kernel (K1, K2, K4 and K4's backward with their training
-launches: phase 13's, and for K2 phase 15's texture run; K1, K4 and K4's
-backward with phase 16's launches a command) and the result line {"ok":
-true, "device": {...}}.
+line, a {"checkpoints": ...} line, a {"metrics": ...} line, the card
+line, a JSON object with one entry per kernel (K1, K2, K4 and K4's
+backward with their training launches: phase 13's, and for K2 phase 15's
+texture run; K1, K4 and K4's backward with phase 16's and phase 17's
+launches a command) and the result line {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -2037,6 +2057,236 @@ def check_bf16_serving(build, forward_of, models, card, kernels, inputs,
     return k4, launches, summary
 
 
+# phase 17: the port's Inception on the card against its CPU run on the
+# same uint8 batch, TF32 off: features relative to the largest feature
+# (the CPU tests hold the CPU graph to JAX's within 3e-7 of it), IS
+# probabilities absolute
+INCEPTION_FEATURE_REL = 1e-4
+INCEPTION_PROBS_TOL = 1e-5
+# phase 17's dataset: the flagship's own images, enough for FID's
+# statistics to be finite
+METRIC_IMAGES = 64
+
+
+def write_metric_data(G, mesh, lms, device, root, n=METRIC_IMAGES):
+    """Phase 17's dataset in ``root``: ``n`` of ``G``'s 512^2 images (batch
+    16, jittered expressions, cameras over a yaw and pitch sweep) written as
+    PNGs with the head's .obj and landmarks per item, and the head as
+    ``head.obj``. Returns the dataset's and the head's paths."""
+    import numpy as np
+    from next3d_tpu_torch.cli.common import camera_label, frame_uint8
+    from next3d_tpu_torch.utils.synthetic_head import save_dataset, save_head
+
+    labels = np.concatenate([camera_label(0.4 * (i / (n - 1) - 0.5),
+                                          0.1 * ((i * 7) % n / n - 0.5))
+                             for i in range(n)])
+    v = head_batch(mesh, lms, n, device, jitter=0.003)
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    z = torch.randn(n, 512, generator=g, device=device)
+    images = []
+    with torch.no_grad():
+        for i in range(0, n, 16):
+            c = torch.from_numpy(labels[i:i + 16]).to(device)
+            out = G(z[i:i + 16], c, v[i:i + 16], truncation_psi=0.7,
+                    truncation_cutoff=14, noise_mode='const')
+            images += [frame_uint8(im) for im in out['image']]
+    data = save_dataset(os.path.join(root, 'metric_data'), images,
+                        v.cpu().numpy(), labels, mesh)
+    obj, _ = save_head(os.path.join(root, 'metric_head.obj'), mesh, lms)
+    return data, obj
+
+
+def check_metrics(G, files, device, card, kernels):
+    """Phase 17: the metrics at the 512^2 FFHQ config on ``files`` (phase
+    13's temporary directory and the data of ``write_metric_data``). (a)
+    The port's Inception-2015 graph of seeded weights on the card against
+    the CPU on the same uint8 batches at 512^2 (the dataset's images) and
+    128^2, TF32 off; scripted to a TorchScript file with the reference
+    detector's calling convention, which NEXT3D_INCEPTION_PATH names, so
+    that the converter and the attestation run on the card; the
+    detector's img/s alone. (b) ``calc-metrics --metrics fid2k_full
+    --batch 16`` on a snapshot of ``G`` and the dataset: its jsonl record
+    finite, its K1 and K4 launches, wall time and peak memory; the
+    feature loop's img/s and the generator's alone at batch 16; KID, PR
+    and IS over 256 generated images, each finite. (c) ``train --metrics
+    fid2k_full`` (phase 13's config: the train command's defaults, batch 4) on the dataset for two
+    ticks of one batch with a snapshot after the second:
+    its jsonl record, not its exit, decides (the hook prints a failure and
+    trains on). Returns the phase's launches and summary."""
+    import numpy as np
+    from next3d_tpu_torch.cli import main as cli
+    from next3d_tpu_torch.cli.common import load_generator
+    from next3d_tpu_torch.data.dataset import ImageFolderDataset
+    from next3d_tpu_torch.metrics import inception, metric_utils
+    from next3d_tpu_torch.metrics.inception_score import compute_is
+    from next3d_tpu_torch.metrics.kernel_inception_distance import \
+        compute_kid
+    from next3d_tpu_torch.metrics.precision_recall import compute_pr
+    from next3d_tpu_torch.utils.checkpoint import save_snapshot
+    from next3d_tpu_torch.utils.weights import state_dict_to_params
+
+    tmp, data, obj = files['root'], files['metric_data'], files['metric_obj']
+    summary = {}
+    launches = {}
+    dataset = ImageFolderDataset(data)
+
+    # (a) the graph on the card against the CPU
+    params = inception.init_params(SEED)
+    cpu_model = inception.inception_of_params(params)
+    card_model = inception.inception_of_params(params, device)
+    batches = {512: np.stack([dataset[i][0] for i in range(8)]),
+               128: np.random.RandomState(SEED).randint(
+                   0, 256, (8, 3, 128, 128)).astype(np.uint8)}
+    gaps = {}
+    with torch.no_grad():
+        for size, imgs in batches.items():
+            x = torch.from_numpy(imgs)
+            want_f = cpu_model(x, return_features=True)
+            want_p = cpu_model(x, no_output_bias=True)
+            got_f = card_model(x.to(device), return_features=True).cpu()
+            got_p = card_model(x.to(device), no_output_bias=True).cpu()
+            scale = float(want_f.abs().max())
+            gaps[size] = dict(
+                feature_max_abs=float((got_f - want_f).abs().max()),
+                feature_scale=scale,
+                probs_max_abs=float((got_p - want_p).abs().max()))
+            log(f'Inception at {size}^2 (8 images), card vs CPU, TF32 off: '
+                f'features max-abs {gaps[size]["feature_max_abs"]:.3g} of '
+                f'{scale:.3g} (bound {INCEPTION_FEATURE_REL:g} of it), IS '
+                f'probabilities max-abs {gaps[size]["probs_max_abs"]:.3g} '
+                f'(bound {INCEPTION_PROBS_TOL:g})')
+            if not (gaps[size]['feature_max_abs']
+                    <= INCEPTION_FEATURE_REL * scale
+                    and gaps[size]['probs_max_abs'] <= INCEPTION_PROBS_TOL):
+                raise RuntimeError('the Inception graph on the card '
+                                   'disagrees with the CPU')
+    summary['inception_card_vs_cpu'] = gaps
+    path = os.path.join(tmp, 'inception-2015-12-05.pt')
+    torch.jit.script(cpu_model).save(path)
+    os.environ['NEXT3D_INCEPTION_PATH'] = path
+    os.environ.pop('NEXT3D_DETECTOR_IMPL', None)
+    t0 = time.time()
+    model = inception.converted_inception(path, str(device))
+    with open(path + '.torch_parity.json') as f:
+        record = json.load(f)
+    log(f'scripted detector converted and attested on the card in '
+        f'{time.time() - t0:.2f} s: {record}')
+    if record['device'] != torch.device(device).type or \
+            not record['max_abs_feature_delta'] <= record['tol']:
+        raise RuntimeError('the attestation did not run on the card')
+    summary['attestation'] = record
+    x16 = torch.from_numpy(np.stack([dataset[i][0] for i in range(16)])
+                           ).to(device)
+    with torch.no_grad():
+        ms = time_ms(lambda: model(x16, return_features=True), reps=5)
+    detect = inception.make_detector(path, device)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        detect(x16)
+    wrapper_ms = (time.perf_counter() - t0) / 5 * 1e3
+    summary['detector_img_s'] = 16 / ms * 1e3
+    summary['detector_with_host_copy_img_s'] = 16 / wrapper_ms * 1e3
+    log(f'detector, batch 16 of 512^2 uint8: {ms:.2f} ms '
+        f'({summary["detector_img_s"]:.1f} img/s); with its features '
+        f'returned to the host {wrapper_ms:.2f} ms '
+        f'({summary["detector_with_host_copy_img_s"]:.1f} img/s); on {card}')
+
+    # (b) calc-metrics through the CLI
+    snap = os.path.join(tmp, 'metric-snapshot.pkl')
+    save_snapshot(snap, params_G_ema=state_dict_to_params(G.state_dict()),
+                  config={'G_kwargs': G_KWARGS})
+    run_dir = os.path.join(tmp, 'calc_metrics')
+    os.makedirs(run_dir)
+    argv = ['calc-metrics', '--network', snap, '--metrics', 'fid2k_full',
+            '--data', data, '--topology-path', obj, '--run-dir', run_dir,
+            '--batch', '16', '--device', str(device)]
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    (record,), counts = counted(lambda: cli.run(argv), kernels)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    with open(os.path.join(run_dir, 'metric-fid2k_full.jsonl')) as f:
+        written = [json.loads(line) for line in f]
+    fid = written[-1]['results']['fid2k_full']
+    launches['calc-metrics fid2k_full'] = {k: counts[k]
+                                           for k in ('K1', 'K4')}
+    log(f'calc-metrics --metrics fid2k_full --batch 16: fid2k_full {fid:.4f}'
+        f' (metric {written[-1]["total_time"]:.1f} s, command {wall:.1f} s),'
+        f' peak device memory {peak:.2f} GiB (max_memory_allocated); '
+        f'launches {counts}; on {card}')
+    if len(written) != 1 or not math.isfinite(fid) or \
+            counts['K1'] <= 0 or counts['K4'] <= 0:
+        raise RuntimeError('calc-metrics wrote no finite fid2k_full, or '
+                           'its generator ran without K1 or K4')
+    summary['fid2k_full'] = dict(value=fid, metric_s=written[-1][
+        'total_time'], command_s=wall, peak_device_mem_gb=peak)
+
+    cli_generator = load_generator(snap, obj, device)
+    opts = metric_utils.MetricOptions(generator=cli_generator,
+                                      dataset=dataset, batch_size=16,
+                                      device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metric_utils.compute_feature_stats_for_generator(opts, max_items=320)
+    torch.cuda.synchronize()
+    summary['feature_loop_img_s'] = 320 / (time.perf_counter() - t0)
+    z, c, v = metric_utils.draw_conditioning(opts, np.random.RandomState(0))
+    with torch.no_grad():
+        def forward():
+            return cli_generator.synthesis(cli_generator.mapping(z, c), c, v,
+                                           noise_mode='const')['image']
+        summary['generator_img_s'] = 16 / median_ms(forward) * 1e3
+    log(f'feature loop, 320 images at batch 16: '
+        f'{summary["feature_loop_img_s"]:.2f} img/s; the generator alone '
+        f'{summary["generator_img_s"]:.2f} img/s, the detector alone '
+        f'{summary["detector_img_s"]:.1f} img/s; on {card}')
+    t0 = time.time()
+    kid = compute_kid(opts, max_real=None, num_gen=256)
+    precision, recall = compute_pr(opts, max_real=None, num_gen=256)
+    is_mean, is_std = compute_is(opts, num_gen=256, num_splits=4)
+    others = dict(kid=kid, precision=precision, recall=recall,
+                  is_mean=is_mean, is_std=is_std)
+    log(f'KID, PR and IS over 256 generated images ({time.time() - t0:.1f}'
+        f' s): {others}')
+    if not all(math.isfinite(x) for x in others.values()):
+        raise RuntimeError('a metric is not finite')
+    summary['kid_pr_is_256'] = others
+    del cli_generator, opts
+
+    # (c) train --metrics fid2k_full
+    out = os.path.join(tmp, 'run_metrics')
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    result, counts = counted(lambda: cli.run([
+        'train', '--outdir', out, '--data', data, '--batch', '4', '--kimg',
+        '0.008', '--tick', '0.004', '--snap', '1', '--topology-path', obj,
+        '--device', str(device), '--metrics', 'fid2k_full']), kernels)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    path = os.path.join(out, 'metric-fid2k_full.jsonl')
+    written = []
+    if os.path.exists(path):
+        with open(path) as f:
+            written = [json.loads(line) for line in f]
+    launches['train --metrics fid2k_full'] = {
+        k: counts[k] for k in ('K1', 'K4', 'K4b')}
+    log(f'train --metrics fid2k_full, 2 ticks of one batch of 4 at 512^2: '
+        f'{wall:.1f} s; records {written}; peak device memory {peak:.2f} '
+        f'GiB; launches {counts}; on {card}')
+    if result['cur_nimg'] != 8 or len(written) != 1 or \
+            written[0]['snapshot_pkl'] != 'network-snapshot-000000.pkl' or \
+            written[0]['cur_nimg'] != 8 or \
+            not math.isfinite(written[0]['results']['fid2k_full']):
+        raise RuntimeError('train --metrics wrote no finite fid2k_full '
+                           'record after its snapshot')
+    summary['train_fid2k_full'] = dict(
+        value=written[0]['results']['fid2k_full'],
+        metric_s=written[0]['total_time'], command_s=wall,
+        peak_device_mem_gb=peak)
+    summary['launches'] = launches
+    return launches, summary
+
+
 def reenact_rates(G32, Gbf, z, c, mesh, lms, device, card):
     """reenact's per-frame path (synthesis_from_identity, identity built
     once) over 16 jittered frames at batch 1, fp32 and bf16: f/s from the
@@ -2285,6 +2535,13 @@ def main():
             (z[4], c[4], v[4]), cli_reenact_fps)
         checkpoints['wall_s'] = time.time() - t0
         log(f'phase 16: {checkpoints["wall_s"]:.1f} s')
+        t0 = time.time()
+        files['metric_data'], files['metric_obj'] = write_metric_data(
+            G, mesh, head_lms, device, train_tmp)
+        metric_launches, metrics = check_metrics(G, files, device, card,
+                                                 kernels)
+        metrics['wall_s'] = time.time() - t0
+        log(f'phase 17: {metrics["wall_s"]:.1f} s')
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
 
@@ -2325,10 +2582,14 @@ def main():
             # phase 16's commands: from a reference .pkl, and the resumes
             entry['checkpoint_launches'] = {cmd: n[k] for cmd, n in
                                             ckpt_launches.items()}
+            # phase 17's commands: calc-metrics and train --metrics
+            entry['metrics_launches'] = {cmd: n[k] for cmd, n in
+                                         metric_launches.items() if k in n}
     log(json.dumps({'train': train}))
     log(json.dumps({'train_variants': variants}))
     log(json.dumps({'bf16': bf16}))
     log(json.dumps({'checkpoints': checkpoints}))
+    log(json.dumps({'metrics': metrics}))
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

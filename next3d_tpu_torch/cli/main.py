@@ -1,9 +1,11 @@
 """The port's CLI:
 
-    python -m next3d_tpu_torch.cli.main {gen-samples,gen-videos,reenact,train} ...
+    python -m next3d_tpu_torch.cli.main {gen-samples,gen-videos,reenact,train,
+                                         calc-metrics} ...
 
 The options and their defaults are those of the JAX package's commands
-(next3d_tpu/cli/gen_samples.py, gen_videos.py, reenact.py, train.py), plus
+(next3d_tpu/cli/gen_samples.py, gen_videos.py, reenact.py, train.py,
+calc_metrics.py), plus
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
 the kernels). The mesh options default to the reference's demo FLAME files;
 a mesh file that does not exist stops the command with a
@@ -81,6 +83,9 @@ def build_parser():
     from .train import add_options
     add_options(sub.add_parser('train', help='GAN training on one device'),
                 _bool)
+    from . import calc_metrics
+    calc_metrics.add_options(sub.add_parser(
+        'calc-metrics', help='quality metrics of a checkpoint'))
 
     for p in sub.choices.values():
         p.add_argument('--device', type=str, default='cuda',
@@ -110,6 +115,9 @@ def run(argv=None):
         _require(opts, 'obj_path', 'lms_path')
         return generate_video(**kw)
     _require(opts, 'topology_path')
+    if opts.command == 'calc-metrics':
+        from .calc_metrics import calc_metrics
+        return calc_metrics(**kw)
     if opts.command == 'train':
         from .train import train
         return train(**kw)

@@ -27,8 +27,14 @@ warm-starts the networks (``train/training_loop.py load_resume``).
 
 Float32 without TF32 throughout, as the JAX package trains at float32.
 
-Not ported yet, and raising when asked for (ROADMAP.md Queue 1): metrics
-(``--metrics``) and more than one device (``--gpus``).
+``--metrics`` names metrics of ``metrics/metric_main.py`` (comma-separated,
+``none`` for none) that the loop computes on G_ema after each snapshot, on
+the training dataset, each appended to ``metric-<name>.jsonl`` in the run
+directory; a metric that fails is printed as ``metric <name> FAILED`` and
+training goes on, as in the JAX package (JAX training_loop.py:318-338).
+
+Not ported yet, and raising when asked for (ROADMAP.md Queue 1): more than
+one device (``--gpus``).
 """
 
 from __future__ import annotations
@@ -125,16 +131,19 @@ def add_options(p, bool_type):
                    default=16, help='time each phase every N batches')
 
 
+def parse_metric_list(s):
+    """'fid2k_full,kid50k_full' -> the names; none for None, '' and
+    'none' (JAX :30-33)."""
+    if s is None or s in ('', 'none', 'None'):
+        return []
+    return [m.strip() for m in str(s).split(',') if m.strip()]
+
+
 def _unported(opts):
-    for asked, what, item in (
-            (opts['metrics'] not in (None, '', 'none', 'None'),
-             'in-training metrics (--metrics)', 5),
-            ((opts['num_devices'] or 1) > 1, 'training on more than one '
-             'device (--gpus)', 7)):
-        if asked:
-            raise NotImplementedError(f'{what} is not ported to '
-                                      f'next3d_tpu_torch yet (ROADMAP.md '
-                                      f'Queue 1 item {item})')
+    if (opts['num_devices'] or 1) > 1:
+        raise NotImplementedError(
+            'training on more than one device (--gpus) is not ported to '
+            'next3d_tpu_torch yet (ROADMAP.md Queue 1 item 7)')
 
 
 def build_training(opts, device):
@@ -242,6 +251,7 @@ def build_training(opts, device):
                       'style_mixing_prob'], reg_type=o['reg_type'],
                   seed=o['seed'], dataset_type=o['dataset_type'],
                   num_frames=T, gen_exp_cond=o['gen_exp_cond'],
+                  metrics=parse_metric_list(o['metrics']),
                   G_kwargs=g_kwargs)
     loop = dict(total_kimg=o['total_kimg'], batch_size=batch,
                 ema_kimg=batch * 10 / 32, ema_rampup=ema_rampup,
@@ -254,7 +264,7 @@ def build_training(opts, device):
                 timing_sample_every=o['timing_sample_every'],
                 ada_target=o['ada_target'] if o['aug'] == 'ada' else None,
                 augment_p=o['aug_p'] if o['aug'] == 'fixed' else 0.0,
-                ada_kimg=ada_kimg)
+                ada_kimg=ada_kimg, metrics=parse_metric_list(o['metrics']))
     return G, D, G_ema, loss, step, config, loop
 
 

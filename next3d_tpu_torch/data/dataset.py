@@ -186,13 +186,18 @@ class ImageFolderDataset:
     def get_label_std(self):
         return self._load_labels().std(0)
 
+    def get_verts(self, idx):
+        """Item ``idx``'s verts and landmarks, ``self[idx][2]`` without
+        reading its image."""
+        return self._get_verts(self._raw_idx[idx])
+
     def sample_conditioning(self, rnd, n):
         """n (label, verts) pairs drawn uniformly from the whole dataset
         with the host RandomState ``rnd`` (reference training_loop.py
         :324-333)."""
         idx = rnd.randint(len(self), size=n)
         c = np.stack([self.get_label(int(i)) for i in idx])
-        v = np.stack([self._get_verts(self._raw_idx[int(i)]) for i in idx])
+        v = np.stack([self.get_verts(int(i)) for i in idx])
         return c.astype(np.float32), v.astype(np.float32)
 
     def __getitem__(self, idx):

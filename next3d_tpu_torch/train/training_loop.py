@@ -29,9 +29,10 @@ is sampled every ``timing_sample_every`` batches, as in the JAX package.
 Each tick's numeric fields also go to TensorBoard scalars in the run
 directory (``utils/tensorboard.py``, JAX :128-132, :240-245) at the global
 step ``cur_nimg // 1000``. A resume also takes the JAX loop's snapshots and
-the reference's network pickles (``load_resume``). In-training metrics and
-the abort and progress callbacks are not ported (the ``train`` command
-refuses ``--metrics``).
+the reference's network pickles (``load_resume``). After each snapshot,
+the ``metrics`` (names of ``metrics/metric_main.py``) run on G_ema and the
+training dataset (JAX :275-278, :318-338); a metric that fails is printed
+and training goes on. The abort and progress callbacks are not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import contextlib
 import json
 import os
 import time
+import traceback
 from collections import defaultdict
 
 import numpy as np
@@ -117,7 +119,7 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
                   resume_path=None, seed=0, config=None,
                   snapshot_vis_batch=None, workers=3,
                   timing_sample_every=16, ada_target=None, augment_p=0.0,
-                  ada_interval=4, ada_kimg=500):
+                  ada_interval=4, ada_kimg=500, metrics=()):
     """Train ``G`` and ``D`` (the loss's, on ``device``) with ``step``'s
     optimizers on batches of ``dataset`` until ``total_kimg`` thousand
     images. Returns {'cur_nimg', 'ticks': the stats.jsonl records}."""
@@ -239,9 +241,10 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
                                  device)
             if snapshot_ticks is not None and tick > 0 and \
                     (tick % snapshot_ticks == 0 or done):
+                snap_path = os.path.join(
+                    run_dir, f'network-snapshot-{cur_nimg // 1000:06d}.pkl')
                 save_snapshot(
-                    os.path.join(run_dir, f'network-snapshot-'
-                                          f'{cur_nimg // 1000:06d}.pkl'),
+                    snap_path,
                     params_G=state_dict_to_params(G.state_dict()),
                     params_D=state_dict_to_params(D.state_dict()),
                     params_G_ema=state_dict_to_params(G_ema.state_dict()),
@@ -252,6 +255,9 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
                     extra={'batch_idx': batch_idx, 'tick': tick + 1,
                            'cond_rnd_state': cond_rnd.get_state(),
                            'ada_p': ada_p, 'ada_signs': list(ada_signs)})
+                if metrics:
+                    _eval_metrics(G_ema, dataset, metrics, run_dir,
+                                  snap_path, cur_nimg, device)
             tick += 1
             tick_start_nimg = cur_nimg
             tick_start_time = time.time()
@@ -329,6 +335,26 @@ def load_resume(path, G, D, G_ema, step):
 
 
 @torch.no_grad()
+def _eval_metrics(G_ema, dataset, metrics, run_dir, snapshot_path,
+                  cur_nimg, device):
+    """In-training metrics on ``G_ema`` (JAX :318-338, reference
+    training_loop.py:479-492): each record goes to its jsonl file in
+    ``run_dir``, the dataset's statistics are cached there, and a failure
+    (no local Inception pickle, say) is printed and never stops training."""
+    from ..metrics import metric_main
+    for name in metrics:
+        try:
+            record = metric_main.calc_metric(
+                name, run_dir=run_dir, generator=G_ema, dataset=dataset,
+                cache_dir=run_dir, device=device,
+                snapshot_pkl=os.path.basename(snapshot_path),
+                cur_nimg=cur_nimg)
+            print(f"metric {name}: {record['results']}", flush=True)
+        except Exception as e:  # a metric never stops training
+            traceback.print_exc()
+            print(f'metric {name} FAILED: {e!r}', flush=True)
+
+
 def _save_fakes_grid(G_ema, vis, run_dir, cur_nimg, device):
     """fakes<kimg>.png and fakes<kimg>_raw.png from G_ema with constant
     noise (reference training_loop.py:428-435)."""

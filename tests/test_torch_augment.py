@@ -24,6 +24,7 @@ from next3d_tpu_torch.ops.grid_sample import grid_sample_gradfix
 from next3d_tpu_torch.train import augment
 
 from torch_parity import n, t
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 ADA_KW = dict(xflip=1, rotate90=1, xint=1, scale=1, rotate=1, aniso=1,
               xfrac=1, brightness=1, contrast=1, lumaflip=1, hue=1,

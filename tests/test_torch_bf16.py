@@ -68,6 +68,7 @@ from next3d_tpu_torch.utils.weights import load_jax_params
 from test_torch_generator import CFG, EXPRESSION_SEED, _liven_w_avg
 from test_torch_nn import _liven, _pair
 from torch_parity import n, one_thread, t, to_jax_tree  # noqa: F401
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 U = 2.0 ** -8            # bf16's unit roundoff
 BF16 = jnp.bfloat16

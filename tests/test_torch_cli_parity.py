@@ -47,6 +47,7 @@ from next3d_tpu_torch.utils.weights import load_jax_params
 from test_torch_cli import _drive_dir, _hide_video_libraries
 from test_torch_generator import _liven_w_avg
 from torch_parity import n, t, to_jax_tree
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 G_KWARGS = dict(
     z_dim=64, c_dim=25, w_dim=512, img_resolution=128, img_channels=3,

@@ -22,9 +22,13 @@ planes does), and K4's
 backward within 1e-5 of the largest gradient of its plain version and of
 grid_sampler_2d_backward, both adding in float64 (its atomics add in no
 fixed order); the slices within the fp32 parity gate of ROADMAP.md (max-abs
-2e-3, mean-abs 1e-4), with TF32 off on the card.
+2e-3, mean-abs 1e-4), with TF32 off on the card; the Inception-2015
+detector (metrics/inception.py) within 1e-4 of its features' scale and
+1e-5 on its IS probabilities of the CPU's, converted and attested on the
+card.
 """
 
+import json
 import math
 
 import numpy as np
@@ -547,3 +551,31 @@ def test_small_slice_on_card_matches_cpu(device, model):
     for key in ('image', 'image_raw', 'image_depth'):
         err = (got[key].cpu() - want[key]).abs()
         assert err.max().item() <= 2e-3 and err.mean().item() <= 1e-4, key
+
+
+@pytest.mark.parametrize('size', [128, 512])
+def test_inception_on_card_matches_cpu(device, size, tmp_path):
+    """The Inception-2015 graph of seeded weights on the card against the
+    CPU, TF32 off: features within 1e-4 of their scale, IS probabilities
+    within 1e-5; a scripted copy converts and attests on the card."""
+    from next3d_tpu_torch.metrics import inception
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = inception.init_params(0)
+    cpu = inception.inception_of_params(params)
+    card = inception.inception_of_params(params, device)
+    x = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (4, 3, size, size)).astype(np.uint8))
+    with torch.no_grad():
+        want = cpu(x, return_features=True)
+        got = card(x.to(device), return_features=True).cpu()
+        probs = (card(x.to(device), no_output_bias=True).cpu()
+                 - cpu(x, no_output_bias=True)).abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert probs <= 1e-5
+    path = str(tmp_path / 'inception.pt')
+    torch.jit.script(cpu).save(path)
+    model = inception.converted_inception(path, str(device))
+    assert next(model.parameters()).device.type == 'cuda'
+    with open(path + '.torch_parity.json') as f:
+        assert json.load(f)['device'] == 'cuda'

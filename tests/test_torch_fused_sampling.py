@@ -23,6 +23,7 @@ from next3d_tpu_torch.utils.weights import load_jax_params
 
 from test_torch_ops import _camera
 from torch_parity import n, t
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 DECODER = {'decoder_lr_mul': 1, 'decoder_output_dim': 32}
 OPTS = dict(ray_start=2.25, ray_end=3.3, box_warp=1.0, depth_resolution=8,

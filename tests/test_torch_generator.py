@@ -40,6 +40,7 @@ from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 from next3d_tpu_torch.utils.weights import load_jax_params
 
 from torch_parity import n, one_thread, t, to_jax_tree  # noqa: F401
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 RK = dict(ray_start=2.25, ray_end=3.3, box_warp=1.0, depth_resolution=8,
           depth_resolution_importance=8, disparity_space_sampling=False,

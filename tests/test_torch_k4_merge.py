@@ -21,6 +21,7 @@ from next3d_tpu_torch.render.camera_utils import (fov_to_intrinsics,
                                                   lookat_pose)
 from next3d_tpu_torch.render.ray_sampler import sample_rays
 from next3d_tpu_torch.render.renderer import sample_stratified
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 
 def _render_points(n, rays, depth, kind):

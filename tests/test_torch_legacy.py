@@ -27,6 +27,7 @@ from next3d_tpu_torch.utils.weights import (load_jax_params,
 
 from test_legacy_tf import _fake_tflib_network_pickle
 from torch_parity import n, t
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 TOL = dict(rtol=0, atol=1e-5)
 

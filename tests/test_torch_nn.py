@@ -18,6 +18,7 @@ from next3d_tpu_torch import nn as tnn
 from next3d_tpu_torch.utils.weights import load_jax_params
 
 from torch_parity import n, t, to_jax_tree
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 
 def _close(got, want):

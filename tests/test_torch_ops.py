@@ -37,6 +37,7 @@ from next3d_tpu_torch.render.ray_sampler import sample_rays as trays
 from next3d_tpu_torch.utils.weights import load_jax_params
 
 from torch_parity import n, t
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

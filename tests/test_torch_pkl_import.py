@@ -35,6 +35,7 @@ from next3d_tpu_torch.utils.weights import (params_to_state_dict,
 from test_torch_cli import G_KWARGS as CLI_G_KWARGS
 from test_torch_cli import _drive_dir, _hide_video_libraries
 from torch_parity import one_thread  # noqa: F401 (a fixture)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 # the reference-style init_kwargs of tests/test_torch_cli.py (class_name,
 # fp16 and sr knobs that the port filters), at 64^2 planes and 4+4

@@ -20,6 +20,7 @@ from next3d_tpu_torch.ops.raster import (_resolve_plain, binned_prep,
                                          segments_in_face_order)
 from next3d_tpu_torch.utils.raster_cases import four_views
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 
 def _head_views(seed, H=128):

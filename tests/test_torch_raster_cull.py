@@ -15,6 +15,7 @@ from next3d_tpu_torch.ops.raster import (SUB_H, SUB_W, TILE, _resolve_plain,
                                          row_nonnegative)
 from next3d_tpu_torch.utils.raster_cases import adversarial_mesh, four_views
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 CASES = {
     'four-views': lambda: (*four_views(synthetic_head()[0], 6), 256),

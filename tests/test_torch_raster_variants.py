@@ -37,6 +37,7 @@ from next3d_tpu_torch.utils.raster_cases import named_sliver, sliver_sweep
 from test_rasterizer import random_mesh
 from test_torch_raster import _head_views, _rounding_tie, _four_views
 from torch_parity import n, one_thread, t  # noqa: F401  (a fixture)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 EPS = float(np.finfo(np.float32).eps)
 

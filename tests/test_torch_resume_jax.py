@@ -38,6 +38,7 @@ from next3d_tpu_torch.utils.weights import (load_jax_params,
 
 from test_torch_train_cli import _argv, _opts, files  # noqa: F401
 from torch_parity import one_thread  # noqa: F401 (a fixture)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 LR, BETAS, EPS = 0.0025, (0.0, 0.99), 1e-8
 

@@ -33,6 +33,7 @@ from next3d_tpu_torch.utils.weights import load_jax_params
 
 from test_torch_generator import _liven_w_avg
 from torch_parity import n, t, to_jax_tree
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 RK = dict(ray_start=2.25, ray_end=3.3, box_warp=1.0, depth_resolution=8,
           depth_resolution_importance=8, disparity_space_sampling=False,

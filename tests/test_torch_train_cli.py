@@ -5,8 +5,9 @@ synthetic head: two ticks, a snapshot, a resume from it through the loop
 that gives parameters bit-equal to an uninterrupted run, and one through
 the command, which changes the schedules as the JAX command does; the
 texture variant with ADA, a fixed augmentation probability and video clips,
-each run and resumed; the command's options against the JAX click
-command's, and what each configuration builds against what the JAX
+each run and resumed; in-training metrics after each snapshot, a failed
+one printed while training goes on; the command's options against the JAX
+click command's, and what each configuration builds against what the JAX
 command builds; what is not ported raises."""
 
 import json
@@ -25,6 +26,7 @@ from next3d_tpu.utils.tensorboard import read_scalars
 from next3d_tpu_torch.cli import main as cli
 from next3d_tpu_torch.cli import train as port_train
 from next3d_tpu_torch.cli.common import camera_label
+from next3d_tpu_torch.metrics import metric_main
 from next3d_tpu_torch.models.triplane_texture import TriPlaneTextureGenerator
 from next3d_tpu_torch.utils.checkpoint import (load_optimizer_state,
                                                load_snapshot)
@@ -35,6 +37,7 @@ from next3d_tpu_torch.utils.synthetic_head import (save_clip_dataset,
 from next3d_tpu_torch.utils.weights import load_jax_params
 
 from torch_parity import one_thread  # noqa: F401 (a fixture)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 
 def toy_dataset(root, n=4, size=128, seed=0):
@@ -115,19 +118,55 @@ def _assert_events_match_stats(run_dir):
     assert read_scalars(os.path.join(run_dir, events)) == want
 
 
+def stub_fid(opts):
+    """A small FID for the tests: 4 generated images in one batch, the
+    features each image's mean red and green level (a stub detector)."""
+    from next3d_tpu_torch.metrics.frechet_inception_distance import \
+        compute_fid
+
+    def detector(images):
+        return images.float().mean((2, 3))[:, :2].cpu().numpy()
+    return {'stub_fid': compute_fid(dataclasses.replace(
+        opts, detector=detector, batch_size=4), max_real=None, num_gen=4)}
+
+
+@pytest.fixture(scope='module')
+def whole(files):
+    """Three batches at once (a tick each) with a snapshot at ticks 1 and 2
+    and two metrics after each: the stub FID, and fid50k_full, which fails
+    for want of an Inception detector. Returns the command's result and
+    what it printed."""
+    import contextlib
+    import io
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(metric_main._metric_dict, 'stub_fid', stub_fid)
+        mp.delenv('NEXT3D_INCEPTION_PATH', raising=False)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                result = cli.run(_argv(files, 'whole', 0.003, '--snap', '1',
+                                       '--metrics', 'stub_fid,fid50k_full'))
+        finally:
+            torch.set_num_threads(threads)
+    return result, out.getvalue()
+
+
 @pytest.mark.usefixtures('one_thread')
-def test_train_resumes_bit_exact(files):
-    """Three batches at once (a tick each), against two (ticks 0 and 1, a
-    snapshot at the end) and a resume from that snapshot for one more
-    through the loop with the uninterrupted run's schedules: G, D and G_ema
-    equal bit for bit, and the resumed run continues cur_nimg and the tick
-    count. Batch 0 runs all four phases, its stats are finite, and the
-    third batch moved each network. The run's TensorBoard scalars equal its
-    stats.jsonl. (A resume through the command changes
-    the schedules as the JAX command does, EMA without ramp-up and no blur:
-    ``test_options_build_what_the_jax_command_builds``; the command's
-    resumes run in ``test_train_variant_runs_and_resumes``.)"""
-    whole = cli.run(_argv(files, 'whole', 0.003))
+def test_train_resumes_bit_exact(files, whole):
+    """Three batches at once (a tick each; with metrics after the snapshots
+    of ticks 1 and 2), against two (ticks 0 and 1, a snapshot at the end)
+    and a resume from that snapshot for one more through the loop with the
+    uninterrupted run's schedules: G, D and G_ema equal bit for bit (the
+    metrics disturb no state of training), and the resumed run continues
+    cur_nimg and the tick count. Batch 0 runs all four phases, its stats
+    are finite, and the third batch moved each network. The run's
+    TensorBoard scalars equal its stats.jsonl. (A resume through the
+    command changes the schedules as the JAX command does, EMA without
+    ramp-up and no blur: ``test_options_build_what_the_jax_command_builds``;
+    the command's resumes run in ``test_train_variant_runs_and_resumes``.)"""
+    whole, _ = whole
     assert whole['cur_nimg'] == 3 and len(whole['ticks']) == 3
     _assert_events_match_stats(str(files[0] / 'whole'))
     first = whole['ticks'][0]
@@ -217,7 +256,8 @@ def test_options_build_what_the_jax_command_builds(files, clips, config):
     want = _jax_build(dict(opts, outdir=str(files[0] / 'jax_build')))
     for key in ('ema_rampup', 'ada_kimg', 'ada_target', 'augment_p',
                 'total_kimg', 'batch_size', 'ema_kimg', 'g_reg_interval',
-                'kimg_per_tick', 'snapshot_ticks', 'resume_path', 'seed'):
+                'kimg_per_tick', 'snapshot_ticks', 'resume_path', 'seed',
+                'metrics'):
         assert loop[key] == want[key], key
     got_cfg = dataclasses.asdict(loss.cfg)
     want_cfg = dataclasses.asdict(want['loss'].cfg)
@@ -320,7 +360,42 @@ def test_train_variant_runs_and_resumes(files, clips, variant):
     assert resumed['ada_p'] == run['ada_p']
 
 
-@pytest.mark.parametrize('extra', [['--metrics', 'fid50k'], ['--gpus', '2']])
+def test_train_metrics_write_their_records(files, whole):
+    """``train --metrics`` computes each metric on G_ema after each
+    snapshot and appends its record, with the snapshot's name and
+    cur_nimg, to metric-<name>.jsonl in the run directory (JAX
+    training_loop.py:275-278, :318-338); the dataset's statistics are
+    cached there."""
+    run = files[0] / 'whole'
+    with open(run / 'metric-stub_fid.jsonl') as f:
+        records = [json.loads(line) for line in f]
+    assert [(r['snapshot_pkl'], r['cur_nimg']) for r in records] == [
+        ('network-snapshot-000000.pkl', 2), ('network-snapshot-000000.pkl',
+                                             3)]
+    for r in records:
+        assert r['metric'] == 'stub_fid'
+        assert np.isfinite(r['results']['stub_fid'])
+        assert r['results']['stub_fid'] > 0
+    assert len([f for f in os.listdir(run)
+                if f.startswith('ds-features-')]) == 1
+    assert 'metric stub_fid: {' in whole[1]
+
+
+def test_failed_metric_does_not_stop_training(files, whole):
+    """A metric that fails (fid50k_full with no Inception detector) is
+    printed as FAILED after each snapshot and writes no record, and
+    training goes on to its end."""
+    result, printed = whole
+    failed = [line for line in printed.splitlines()
+              if line.startswith('metric fid50k_full FAILED: ')]
+    assert len(failed) == 2 and 'NEXT3D_INCEPTION_PATH' in failed[0]
+    assert not os.path.exists(files[0] / 'whole' /
+                              'metric-fid50k_full.jsonl')
+    assert result['cur_nimg'] == 3
+    assert [r['tick'] for r in result['ticks']] == [0, 1, 2]
+
+
+@pytest.mark.parametrize('extra', [['--gpus', '2']])
 def test_unported_options_raise(files, extra):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         cli.run(_argv(files, 'unported', 0.001, *extra))

@@ -37,6 +37,7 @@ from torch_train_parity import (BATCH, D_KWARGS, LOSS_CFG,
                                 assert_grads_match, assert_loss_matches,
                                 make_batch, make_discriminators, port_loss,
                                 torch_batch)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 
 pytestmark = pytest.mark.usefixtures('one_thread')

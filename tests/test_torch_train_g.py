@@ -29,6 +29,7 @@ from torch_train_parity import (LOSS_CFG, assert_grads_match,
                                 k1_interpret, make_batch,
                                 make_discriminators, make_generators,
                                 port_loss, torch_batch)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 
 pytestmark = pytest.mark.usefixtures('one_thread')

@@ -48,6 +48,7 @@ from test_torch_texture import CFG, EXPRESSION_SEED
 from torch_parity import n, one_thread, t, to_jax_tree  # noqa: F401
 from torch_train_parity import (D_KWARGS, LOSS_CFG, assert_grads_match,
                                 assert_loss_matches)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 pytestmark = pytest.mark.usefixtures('one_thread')
 

@@ -23,6 +23,7 @@ from next3d_tpu_torch.ops.triplane import channels_last, triplane_sample
 from next3d_tpu_torch.render.renderer import sample_from_planes
 
 from torch_parity import n, t
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 
 def _camera_coords(n_img=1, rays=256, steps=16, yaw=0.0, pitch=0.0):

@@ -31,6 +31,7 @@ from next3d_tpu_torch.utils.weights import state_dict_to_params
 
 from test_torch_train_cli import _argv, _opts, files  # noqa: F401
 from torch_parity import one_thread  # noqa: F401 (a fixture)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 
 def _tree(module):

@@ -92,7 +92,8 @@ def test_obj_io_matches_jax_package(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port (its CLIs and its training path included,
-    the augment pipe and the video dataset too, and the checkpoint readers),
+    the augment pipe and the video dataset too, the checkpoint readers and
+    the metrics),
     and a generator built from it, pull in neither JAX nor any module of
     the JAX package, nor optax, click or PIL, which the card machine
     lacks."""
@@ -114,7 +115,18 @@ def test_port_imports_no_jax():
         "'next3d_tpu_torch.utils.legacy', "
         "'next3d_tpu_torch.train.warm_start', "
         "'next3d_tpu_torch.utils.tensorboard', "
-        "'next3d_tpu_torch.utils.checkpoint_cases'} "
+        "'next3d_tpu_torch.utils.checkpoint_cases', "
+        "'next3d_tpu_torch.metrics.metric_utils', "
+        "'next3d_tpu_torch.metrics.inception', "
+        "'next3d_tpu_torch.metrics.frechet_inception_distance', "
+        "'next3d_tpu_torch.metrics.kernel_inception_distance', "
+        "'next3d_tpu_torch.metrics.precision_recall', "
+        "'next3d_tpu_torch.metrics.inception_score', "
+        "'next3d_tpu_torch.metrics.perceptual_path_length', "
+        "'next3d_tpu_torch.metrics.reenactment_distance', "
+        "'next3d_tpu_torch.metrics.equivariance', "
+        "'next3d_tpu_torch.metrics.metric_main', "
+        "'next3d_tpu_torch.cli.calc_metrics'} "
         "<= set(names), names\n"
         "from next3d_tpu_torch.models import (triplane_next3d,"
         " triplane_texture)\n"

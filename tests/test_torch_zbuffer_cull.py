@@ -24,6 +24,7 @@ from next3d_tpu_torch.utils.raster_cases import (adversarial_mesh,
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 
 from torch_parity import one_thread  # noqa: F401  (a fixture)
+from torch_parity import one_thread_module  # noqa: F401 (autouse: one torch thread)
 
 pytestmark = pytest.mark.usefixtures('one_thread')
 

@@ -1,6 +1,8 @@
 """Helpers shared by the tests that hold the PyTorch port against the JAX
 package: both run on the CPU, on the same numpy inputs and parameters."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +28,17 @@ def n(x):
     return np.asarray(x)
 
 
+@contextlib.contextmanager
+def single_thread():
+    """Run the block on one torch intra-op thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def one_thread():
     """Run a test on one torch intra-op thread. The suite runs in several
@@ -34,9 +47,14 @@ def one_thread():
     the float64 emulation of K5's fused multiply-adds (ops/raster_zbuffer.py
     fma32, many mid-sized elementwise ops) then runs more than ten times
     slower than on one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
+    with single_thread():
         yield
-    finally:
-        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread_module():
+    """``one_thread`` for every test of a module that imports this
+    fixture, its module-scoped fixtures included (an autouse fixture of
+    the modules that import it only)."""
+    with single_thread():
+        yield
