@@ -169,6 +169,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      in metric-fid2k_full.jsonl (the hook prints a failure and trains on,
      so the record decides), finite, with its launches. It ends with a
      {"metrics": ...} line.
+ 18. bf16 training, remat and the bench: (a) K4's bf16 backward (the
+     float32 backward kernel, its result cast to bf16 once; the autograd
+     Function that bf16 planes take under grad mode) at phase 4's shapes,
+     bf16 planes (4, 3, 256, 256, 32), against the plain version's
+     autograd gradient of the same bf16 planes within one bf16 ulp
+     (BF16_ULP of each value) plus 1e-5 of the largest gradient (the two
+     add in float32 in different orders before the cast), timed beside the
+     plain backward and grid_sampler_2d_backward on the planes upcast;
+     (b) one Gmain of phase 6's flagship at batch 4, fp32, random noise and
+     depths from a device generator of one seed, with remat_synthesis off
+     and on (each run twice, the second timed): the losses within
+     REMAT_LOSS_REL, G's gradients within REMAT_GRAD_REL relative L2 (K4's
+     backward adds with atomics, so the card gives no bit-equality; the
+     spread of two runs without remat is logged beside it), each with its
+     ms, peak device memory and K1 launches (the recompute adds one);
+     (c) ``python3 -m next3d_tpu_torch.bench`` in subprocesses at
+     NEXT3D_BENCH_ITERS=4, batch 8 (BENCH_RUNS): synthesis, reenact and
+     train in bf16, train in fp32, each printing one JSON line with a
+     finite, positive value; the step times, peak memory and kernel
+     launches each reports on stderr are logged. It ends with a
+     {"bench": ...} line.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -198,6 +219,12 @@ run. It adds device_ms, kernel_device_ms, taps, atomics, parent_ms and
 parent_device_ms (null without --parent), and 'sets': each point set's
 numbers.
 
+K4's bf16 backward (K4b_bf16) carries the same keys, from phase 18 (a):
+its bound is the bytes of the output gradient and the points read once and
+the bf16 gradient written once, its library call grid_sampler_2d_backward
+on the channels-first planes upcast, its plain_ms the plain backward and
+the cast, and its launches those of phase 18's bf16 train bench.
+
 K4's bf16 instance (K4bf16) carries the same keys, from phase 14: its
 bound is the bf16 planes, the points and the float32 output, its launches
 those of phase 14's bf16 forwards, library_ms is null (no one PyTorch call
@@ -212,11 +239,13 @@ The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 ``<name>_kpt2d.txt`` landmark file beside it) when that file exists, else
 the in-repo synthetic head. The run uses no JAX. It ends with a
 {"train": ...} line, a {"train_variants": ...} line, a {"bf16": ...}
-line, a {"checkpoints": ...} line, a {"metrics": ...} line, the card
-line, a JSON object with one entry per kernel (K1, K2, K4 and K4's
-backward with their training launches: phase 13's, and for K2 phase 15's
-texture run; K1, K4 and K4's backward with phase 16's and phase 17's
-launches a command) and the result line {"ok": true, "device": {...}}.
+line, a {"checkpoints": ...} line, a {"metrics": ...} line, a
+{"bench": ...} line, the card line, a JSON object with one entry per
+kernel (K1, K2, K4 and K4's backward with their training launches: phase
+13's, and for K2 phase 15's texture run; K1, K4 and K4's backward with
+phase 16's and phase 17's launches a command; K4's bf16 backward with
+phase 18's bf16 train bench) and the result line {"ok": true, "device":
+{...}}.
 """
 
 import argparse
@@ -232,21 +261,12 @@ import time
 
 import torch
 
+# the FFHQ 512^2 rendering config of __graft_entry__.py:10-18 and the
+# generator's construction kwargs, as a snapshot stores them; the card's
+# nvidia-smi name and power limit
+from next3d_tpu_torch.bench import G_KWARGS, RENDER_KW_FFHQ, card_line
+
 SEED = 0
-# the FFHQ 512^2 rendering config of __graft_entry__.py:10-18
-RENDER_KW_FFHQ = dict(
-    ray_start=2.25, ray_end=3.3, box_warp=1.0,
-    depth_resolution=48, depth_resolution_importance=48,
-    disparity_space_sampling=False, clamp_mode='softplus',
-    c_gen_conditioning_zero=False, c_scale=1.0, gpc_reg_prob=0.5,
-    superresolution_module='SuperresolutionHybrid8XDC',
-    superresolution_noise_mode='none', sr_antialias=True,
-    density_reg=0.25, density_reg_p_dist=0.004, reg_type='l1',
-    decoder_lr_mul=1.0)
-# the generator's construction kwargs, as a snapshot stores them
-G_KWARGS = dict(z_dim=512, c_dim=25, w_dim=512, img_resolution=512,
-                img_channels=3, sr_num_fp16_res=4,
-                rendering_kwargs=RENDER_KW_FFHQ)
 CSRC = 'next3d_tpu_torch/csrc/'
 LIBRARIES = ('raster_binned_uv', 'raster_binned_prep', 'triplane_sample',
              'raster_zbuffer', 'gather_row_blocks')
@@ -263,6 +283,22 @@ OPS_ZBUFFER_TEST = 23
 # bf16 serving: the bounds of tests/test_bf16_parity.py on a bf16 forward
 # against the fp32 forward (max-abs, PSNR over a [-1, 1] range)
 BF16_BOUNDS = {'image': (0.05, 45.0), 'image_raw': (0.02, 55.0)}
+# phase 18: one bf16 ulp relative to a value's magnitude (at most): K4's
+# bf16 backward and the plain version's may round a float32 sum apart
+BF16_ULP = 2.0 ** -7
+# phase 18: remat on against off on the card, Gmain of the 512^2 flagship
+# at batch 4 in fp32: the loss (the same forward), and G's gradient by
+# relative L2. K4's backward adds with float atomics and cuDNN's backward
+# algorithms need not be deterministic, so two runs without remat differ
+# too, by about a tenth of this bound (phase 18 logs that spread beside
+# the gap)
+REMAT_LOSS_REL = 1e-5
+REMAT_GRAD_REL = 1e-3
+# phase 18: the bench runs (mode, NEXT3D_BENCH_BF16), each at batch 8 and
+# NEXT3D_BENCH_ITERS=4, and the time limit of each
+BENCH_RUNS = (('synthesis', '1'), ('reenact', '1'), ('train', '1'),
+              ('train', '0'))
+BENCH_TIMEOUT_S = 420
 # a stage of the bf16 forward whose RMS gap to its fp32 stage is more than
 # this share of the fp32 stage's largest magnitude is a fault (a wrong
 # layout or weight moves it by tens of percent), not bf16's rounding (an
@@ -273,13 +309,6 @@ BF16_STAGE_FAULT = 0.05
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card_line():
-    return subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps=10, warmup=2):
@@ -2331,6 +2360,198 @@ def reenact_rates(G32, Gbf, z, c, mesh, lms, device, card):
     return rates
 
 
+def check_k4_bf16_backward(device):
+    """Phase 18 (a): K4's bf16 backward at phase 4's shapes against the
+    plain version's autograd gradient of the same bf16 planes."""
+    import numpy as np
+    from next3d_tpu_torch.ops.triplane import (channels_last, merge_plain,
+                                               project_onto_planes,
+                                               triplane_sample,
+                                               triplane_sample_backward,
+                                               triplane_sample_backward_plain,
+                                               triplane_sample_plain)
+    from next3d_tpu_torch.render.ray_sampler import sample_rays
+    from next3d_tpu_torch.render.renderer import sample_stratified
+    g = torch.Generator(device=device).manual_seed(SEED)
+    raw = torch.randn(4, 3, 32, 256, 256, generator=g, device=device)
+    planes = channels_last(raw, torch.bfloat16)
+    c = ffhq_camera(4, device)
+    ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
+                         c[:, 16:25].reshape(-1, 3, 3), 64)
+    depths = sample_stratified(None, ro, 2.25, 3.3, 48)
+    coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(4, -1, 3)
+    M = coords.shape[1]
+    grad_out = torch.randn(4, 3, M, 32, generator=g, device=device)
+    grads = []
+    with torch.enable_grad():
+        for sample in (triplane_sample, triplane_sample_plain):
+            p = planes.clone().requires_grad_()
+            sample(p, coords, 1.0).backward(grad_out)
+            grads.append(p.grad)
+    got, want = grads
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise RuntimeError(f'K4 bf16 backward: {got.dtype}, {want.dtype}')
+    err = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    within = bool((err <= BF16_ULP * want.float().abs()
+                   + 1e-5 * scale).all())
+    args = (grad_out, coords, 1.0, 256, 256)
+    feats = raw.reshape(12, 32, 256, 256)
+    grid = project_onto_planes(2.0 * coords)[:, None]       # box_warp 1
+    grad_cf = grad_out.reshape(12, M, 32).permute(0, 2, 1)[:, :, None]
+    _, _, _, taps = merge_plain(*args)
+    out = dict(
+        max_abs_err=float(err.max()), largest_gradient=scale,
+        differing=float((err > 0).float().mean()),
+        ms=time_ms(lambda: triplane_sample_backward(
+            *args, 'launches_bf16').to(torch.bfloat16)),
+        plain_ms=time_ms(lambda: triplane_sample_backward_plain(
+            *args).to(torch.bfloat16), reps=3),
+        library_ms=time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            grad_cf, feats, grid, 0, 0, False, [True, False])),
+        taps=taps, **bound(nbytes(grad_out, coords, got), taps * 32 * 2))
+    log(f'K4 bf16 backward, planes\' gradient (4, 3, 256, 256, 32) bf16, '
+        f'{M} points an image: max-abs {out["max_abs_err"]:.3g} against the '
+        f'plain version\'s autograd gradient (largest {scale:.3g}; '
+        f'{100 * out["differing"]:.3f}% of the values differ), within one '
+        f'bf16 ulp + 1e-5 of the largest: {within}; kernel and cast '
+        f'{out["ms"]:.4f} ms, plain {out["plain_ms"]:.3f} ms, '
+        f'grid_sampler_2d_backward on the planes upcast '
+        f'{out["library_ms"]:.3f} ms, bound {out["bound_ms"]:.4f} ms by '
+        f'{out["bound_by"]}')
+    if not (within and np.isfinite(scale) and scale > 0):
+        raise RuntimeError('K4\'s bf16 backward disagrees with its plain '
+                           'version')
+    return out
+
+
+def check_remat(G, mesh, lms, device, card):
+    """Phase 18 (b): Gmain of the flagship ``G`` at batch 4, fp32, with
+    remat_synthesis off and on, from one generator seed."""
+    from next3d_tpu_torch.nn.discriminator import DualDiscriminator
+    from next3d_tpu_torch.ops import raster
+    from next3d_tpu_torch.train.loss import LossConfig, StyleGAN2Loss
+    from next3d_tpu_torch.train.train_step import trainable_mask
+    D = DualDiscriminator(c_dim=25, img_resolution=512, img_channels=3,
+                          generator=torch.Generator().manual_seed(SEED))
+    D = D.to(device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    c = ffhq_camera(4, device)
+    batch = dict(gen_z=torch.randn(4, 512, generator=g, device=device),
+                 gen_c=c, gen_v=head_batch(mesh, lms, 4, device), real_c=c)
+    mask = trainable_mask(G)
+    params = [p for k, p in G.named_parameters() if mask[k]]
+
+    def gmain(remat):
+        loss_obj = StyleGAN2Loss(G, D, LossConfig(remat_synthesis=remat))
+        sched, nrr = loss_obj.schedules(0)
+        generator = torch.Generator(device=device).manual_seed(SEED + 1)
+        raster.rasterize_binned_uv.launches = 0
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _, _ = loss_obj.gmain_loss(batch, generator, sched, nrr)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        flat = torch.cat([(gr if gr is not None else torch.zeros_like(p))
+                          .reshape(-1) for gr, p in zip(grads, params)])
+        return dict(loss=float(loss.detach()), grad=flat, ms=ms,
+                    peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                    k1_launches=raster.rasterize_binned_uv.launches)
+
+    runs = {}
+    for remat in (False, True):
+        first = gmain(remat)        # cuDNN's first calls, the allocator
+        runs[remat] = gmain(remat)
+        runs[remat]['first'] = first
+    off, on = runs[False], runs[True]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    spread = rel(off['first']['grad'], off['grad'])
+    out = dict(
+        loss_off=off['loss'], loss_on=on['loss'],
+        loss_rel=abs(on['loss'] - off['loss']) / abs(off['loss']),
+        grad_rel=rel(on['grad'], off['grad']), grad_rel_spread_off=spread,
+        ms_off=off['ms'], ms_on=on['ms'], peak_gib_off=off['peak_gib'],
+        peak_gib_on=on['peak_gib'], k1_launches_off=off['k1_launches'],
+        k1_launches_on=on['k1_launches'], card=card)
+    log(f'remat_synthesis, flagship Gmain at batch 4 fp32 (noise and depths '
+        f'from one device seed): loss off {off["loss"]:.7g}, on '
+        f'{on["loss"]:.7g} (relative {out["loss_rel"]:.3g}); G\'s gradient '
+        f'on vs off relative L2 {out["grad_rel"]:.3g} (off vs off '
+        f'{spread:.3g}); ms off {off["ms"]:.1f}, on {on["ms"]:.1f}; peak '
+        f'{off["peak_gib"]:.2f} GiB off, {on["peak_gib"]:.2f} GiB on; K1 '
+        f'launches off {off["k1_launches"]}, on {on["k1_launches"]}; {card}')
+    if not (out['loss_rel'] <= REMAT_LOSS_REL
+            and out['grad_rel'] <= REMAT_GRAD_REL):
+        raise RuntimeError('remat_synthesis changed Gmain')
+    if (off['k1_launches'], on['k1_launches']) != (1, 2):
+        raise RuntimeError('remat did not recompute the synthesis once')
+    del D, runs, off, on
+    return out
+
+
+def run_bench(mode, bf16):
+    """Phase 18 (c): one ``python3 -m next3d_tpu_torch.bench`` run at batch
+    8 and NEXT3D_BENCH_ITERS=4; its JSON line and what it reports on
+    stderr."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('NEXT3D_BENCH_')}
+    env.update(NEXT3D_BENCH_MODE=mode, NEXT3D_BENCH_BF16=bf16,
+               NEXT3D_BENCH_BATCH='8', NEXT3D_BENCH_ITERS='4')
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'next3d_tpu_torch.bench'],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.time() - t0
+    tag = f'bench {mode} bf16={bf16}'
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise RuntimeError(f'{tag}: exit code {proc.returncode}')
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise RuntimeError(f'{tag}: {len(lines)} lines on stdout')
+    record = json.loads(lines[0])
+    value = record.get('value')
+    if not (isinstance(value, (int, float)) and math.isfinite(value)
+            and value > 0):
+        raise RuntimeError(f'{tag}: value {value!r}')
+    err = proc.stderr.splitlines()
+    out = dict(line=record, wall_s=wall,
+               steps=[ln for ln in err if ln.startswith('step seconds')],
+               peak=[ln for ln in err if ln.startswith('peak device')],
+               mfu=[ln for ln in err if 'GFLOP/img' in ln],
+               launches=json.loads(next(
+                   ln for ln in err if ln.startswith('kernel launches: '))
+                   .split(': ', 1)[1]))
+    log(f'{tag}: {lines[0]}; {out["steps"]} {out["peak"]} {out["mfu"]}; '
+        f'launches {out["launches"]}; {wall:.1f} s')
+    return out
+
+
+def check_bench():
+    """Phase 18 (c): BENCH_RUNS; each run's kernels of the path must have
+    launched (K1 and K4's bf16 or float32 instance; in train also K4's
+    backward of that precision)."""
+    runs = {}
+    for mode, bf16 in BENCH_RUNS:
+        run = run_bench(mode, bf16)
+        need = ['K1', 'K4bf16' if bf16 == '1' else 'K4']
+        if mode == 'train':
+            need.append('K4b_bf16' if bf16 == '1' else 'K4b')
+        if min(run['launches'][k] for k in need) <= 0:
+            raise RuntimeError(f'bench {mode} bf16={bf16} launched none of '
+                               f'{need}: {run["launches"]}')
+        runs[f'{mode} bf16={bf16}'] = run
+    return runs
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
@@ -2545,6 +2766,17 @@ def main():
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
 
+    t0 = time.time()
+    stats['K4b_bf16'] = check_k4_bf16_backward(device)
+    remat = check_remat(G, mesh, head_lms, device, card)
+    # the bench's processes take the card's memory: free this one's cache
+    torch.cuda.empty_cache()
+    bench_runs = check_bench()
+    launches['K4b_bf16'] = bench_runs['train bf16=1']['launches']['K4b_bf16']
+    phase18 = dict(remat=remat, runs=bench_runs, card=card,
+                   wall_s=time.time() - t0)
+    log(f'phase 18: {phase18["wall_s"]:.1f} s')
+
     names = {
         'K1': ('rasterize_binned_uv', 'raster_binned_uv.cu',
                'next3d_tpu/ops/pallas_raster.py:489'),
@@ -2558,6 +2790,9 @@ def main():
         # gather of render/renderer.py:256 sample_from_planes
         'K4b': ('triplane_sample_backward', 'triplane_sample.cu',
                 'next3d_tpu/ops/pallas_triplane.py:177'),
+        # the same kernel for bf16 planes, its result cast to bf16 once
+        'K4b_bf16': ('triplane_sample_backward', 'triplane_sample.cu',
+                     'next3d_tpu/ops/pallas_triplane.py:177'),
         # the same TPU kernel on planes stored in bf16 (gather_bf16, JAX
         # render/renderer.py:50-65)
         'K4bf16': ('triplane_sample_bf16', 'triplane_sample.cu',
@@ -2590,6 +2825,7 @@ def main():
     log(json.dumps({'bf16': bf16}))
     log(json.dumps({'checkpoints': checkpoints}))
     log(json.dumps({'metrics': metrics}))
+    log(json.dumps({'bench': phase18}))
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

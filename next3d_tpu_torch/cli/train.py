@@ -143,7 +143,7 @@ def _unported(opts):
     if (opts['num_devices'] or 1) > 1:
         raise NotImplementedError(
             'training on more than one device (--gpus) is not ported to '
-            'next3d_tpu_torch yet (ROADMAP.md Queue 1 item 7)')
+            'next3d_tpu_torch yet (ROADMAP.md Queue 1 item 4)')
 
 
 def build_training(opts, device):

@@ -19,9 +19,14 @@ permutes and casts in one pass, the kernel reads 64 B a tap, and it
 computes the weights and the 4-tap sums in float32 and writes float32, as
 the plain version does on the planes upcast (``triplane_sample_plain``).
 The JAX package rounds each product and the sum in bf16 instead. Its
-launches are counted apart, in ``triplane_sample.launches_bf16``. The bf16
-instance has no backward: on the card, bf16 planes that require grad
-under grad mode raise.
+launches are counted apart, in ``triplane_sample.launches_bf16``. Its
+backward is the float32 backward kernel below, which reads only the output
+gradient and the points, never the planes: it accumulates in float32 and
+its result is cast to bf16 once (as autograd of the plain version's upcast
+does). Those launches are counted apart too, in
+``triplane_sample_backward.launches_bf16``. The JAX package's gradient of
+its bf16 gather adds in bf16 instead (the VJP of the gather works in the
+table's type).
 
 On the card, when grad mode is on and the planes require grad, the forward
 runs inside an autograd function whose backward is the second kernel of
@@ -238,7 +243,7 @@ def merge_plain(grad_out, coordinates, box_warp, H, W, run=RUN):
     return index, torch.cat(grad), len(index), taps
 
 
-def _backward_cuda(grad_out, coordinates, box_warp, H, W):
+def _backward_cuda(grad_out, coordinates, box_warp, H, W, counter):
     N, _, M, C = grad_out.shape
     if C != C_KERNEL:
         raise ValueError(f'the kernel takes {C_KERNEL} channels, not {C}')
@@ -257,37 +262,48 @@ def _backward_cuda(grad_out, coordinates, box_warp, H, W):
                       grad_out.device, grad_out.data_ptr(),
                       coordinates.data_ptr(), grad.data_ptr(), N, M, H, W, C,
                       2.0 / box_warp)
-    triplane_sample_backward.launches += 1
+    setattr(triplane_sample_backward, counter,
+            getattr(triplane_sample_backward, counter) + 1)
     return grad
 
 
-def triplane_sample_backward(grad_out, coordinates, box_warp, H, W):
-    """grad_out (N, 3, M, C), coordinates (N, M, 3) -> the planes' gradient
-    (N, 3, H, W, C): the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+def triplane_sample_backward(grad_out, coordinates, box_warp, H, W,
+                             counter='launches'):
+    """grad_out (N, 3, M, C), coordinates (N, M, 3) -> the planes' float32
+    gradient (N, 3, H, W, C): the kernel on CUDA tensors, its launch
+    counted in ``counter``, the plain version on CPU tensors."""
     if grad_out.is_cuda:
         return _backward_cuda(grad_out.contiguous(), coordinates, box_warp,
-                              H, W)
+                              H, W, counter)
     return triplane_sample_backward_plain(grad_out, coordinates, box_warp,
                                           H, W)
 
 
 class _SampleWithBackward(torch.autograd.Function):
-    """K4 with K4's backward; the planes' gradient only."""
+    """K4 with K4's backward; the planes' gradient only, for either
+    storage type: float32 planes take the float32 forward, bf16 planes the
+    bf16 instance, and both the float32 backward kernel, whose result is
+    cast to the planes' type once. On CPU tensors both directions run the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, planes_cl, coordinates, box_warp):
         ctx.save_for_backward(coordinates)
         ctx.box_warp = box_warp
         ctx.size = planes_cl.shape[2:4]
+        ctx.dtype = planes_cl.dtype
+        if not planes_cl.is_cuda:
+            return triplane_sample_plain(planes_cl, coordinates, box_warp)
         return _sample_cuda(planes_cl, coordinates, box_warp)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         coordinates, = ctx.saved_tensors
-        return (triplane_sample_backward(grad_out, coordinates, ctx.box_warp,
-                                         *ctx.size), None, None)
+        grad = triplane_sample_backward(
+            grad_out, coordinates, ctx.box_warp, *ctx.size,
+            INSTANCES[ctx.dtype][1])
+        return grad.to(ctx.dtype), None, None
 
 
 def triplane_sample(planes_cl, coordinates, box_warp):
@@ -302,11 +318,6 @@ def triplane_sample(planes_cl, coordinates, box_warp):
             'fault: detach them, or use CPU tensors, whose F.grid_sample '
             'path is differentiable in both arguments')
     if torch.is_grad_enabled() and planes_cl.requires_grad:
-        if planes_cl.dtype != torch.float32:
-            raise RuntimeError(
-                f'K4 on the card has a backward for float32 planes only, '
-                f'not {planes_cl.dtype}: sample float32 planes, disable '
-                f'grad mode, or use CPU tensors')
         return _SampleWithBackward.apply(planes_cl, coordinates, box_warp)
     return _sample_cuda(planes_cl, coordinates, box_warp)
 
@@ -314,3 +325,4 @@ def triplane_sample(planes_cl, coordinates, box_warp):
 triplane_sample.launches = 0
 triplane_sample.launches_bf16 = 0
 triplane_sample_backward.launches = 0
+triplane_sample_backward.launches_bf16 = 0

@@ -25,10 +25,20 @@ probability ``sched['aug_p']``. Video clips (``num_frames > 1``): the
 phases flatten a batch of clips into frames (``flatten_clips``) and
 ``run_D`` folds each clip's frames back into channels, so D sees a clip.
 
-Not ported yet, and raising when asked for: ``remat_synthesis``.
-Without remat the 512^2 flagship trains at batch 4 on one 80 GB card
-(``chip_smoke.py`` phase 13 logs its peak memory); the JAX default is
-remat on, because a 16 GB TPU needs it.
+``remat_synthesis`` recomputes ``G.synthesis`` in the backward
+(``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``), keeping only
+its inputs and outputs between the forward and the backward. The
+recompute replays the forward's draws: it runs on a generator rebuilt
+from the caller's state before the forward, and the caller's generator is
+left where a run without remat leaves it, so the losses and gradients are
+those of a run without remat. The recompute runs synthesis again, its
+host syncs (the mouth boxes, ``fill_mouth``'s rounds) and its rasterizer
+launch included. The whole synthesis is one checkpoint, so the recompute
+holds all its activations again during its own backward: the peak memory
+falls only by D's share (``chip_smoke.py`` phase 18 logs both). The
+port's default is off (the JAX default is on, because a 16 GB TPU needs
+it), and the bench (``next3d_tpu_torch/bench.py``) turns it on, as
+``bench.py`` runs it.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.discriminator import filtered_resizing
 from ..ops import setup_filter
@@ -64,8 +75,8 @@ class LossConfig:
     box_warp: float = 1.0
     style_mixing_prob: float = 0.0
     num_frames: int = 1
-    # the JAX package rematerializes G.synthesis in the backward
-    # (jax.checkpoint); not ported (module docstring)
+    # recompute G.synthesis in the backward (module docstring); the JAX
+    # default is True
     remat_synthesis: bool = False
 
 
@@ -93,10 +104,6 @@ class StyleGAN2Loss:
 
     def __init__(self, G, D, cfg: LossConfig, augment_pipe=None,
                  deterministic=False):
-        if cfg.remat_synthesis:
-            raise NotImplementedError(
-                'remat_synthesis is not ported to next3d_tpu_torch yet '
-                '(ROADMAP.md Queue 1 item 6)')
         self.G = G
         self.D = D
         self.cfg = cfg
@@ -178,9 +185,37 @@ class StyleGAN2Loss:
         ws, w_mean = self.G.mapping(z, c_cond, return_w_mean=True)
         if self.cfg.style_mixing_prob > 0:
             ws = self._style_mixing(ws, z, c, generator)
-        out = self.G.synthesis(ws, c, v, neural_rendering_resolution=nrr,
-                               **self._synthesis_kwargs(generator))
+        kw = self._synthesis_kwargs(generator)
+        if self.cfg.remat_synthesis and torch.is_grad_enabled():
+            out = self._remat_synthesis(ws, c, v, nrr, **kw)
+        else:
+            out = self.G.synthesis(ws, c, v, neural_rendering_resolution=nrr,
+                                   **kw)
         return out, ws, w_mean
+
+    def _remat_synthesis(self, ws, c, v, nrr, noise_mode, generator):
+        """G.synthesis under ``torch.utils.checkpoint``. Both the forward
+        and the recompute draw from a generator rebuilt from ``generator``'s
+        state before the call (checkpoint restores only the global RNGs),
+        and ``generator`` ends where the forward's draws leave it."""
+        state = generator.get_state() if generator is not None else None
+        after = []
+
+        def synthesis(ws):
+            g = None
+            if state is not None:
+                g = torch.Generator(device=generator.device)
+                g.set_state(state)
+            out = self.G.synthesis(ws, c, v, neural_rendering_resolution=nrr,
+                                   noise_mode=noise_mode, generator=g)
+            if g is not None and not after:
+                after.append(g.get_state())
+            return out
+
+        out = checkpoint(synthesis, ws, use_reentrant=False)
+        if after:
+            generator.set_state(after[0])
+        return out
 
     def run_D(self, img, c, generator, sched):
         """D's logits (JAX :194-222): the image blurred while blur_sigma >

@@ -293,8 +293,9 @@ def test_k4_bf16_plain_matches_jax(rng):
 
 
 def test_k4_bf16_plain_is_differentiable(rng):
-    """On CPU tensors the bf16 planes stay differentiable (the card's bf16
-    instance raises under grad mode; tests/test_torch_cuda.py): the
+    """On CPU tensors the bf16 planes stay differentiable (on the card
+    they take the float32 backward kernel and a cast to bf16;
+    tests/test_torch_cuda.py, tests/test_torch_train_bf16.py): the
     planes' gradient through the bf16 layout is the float32 one's up to
     the bf16 rounding of the samples it is taken at (measured 1.1 U):
     4 U."""

@@ -18,7 +18,8 @@ and, once each segment is sorted by face id, its slab bit for bit
 starts on the kept faces (csrc/raster_zbuffer.cu); K4 within 1e-5 (its
 unnormalization rounds in another order than F.grid_sample), its bf16-plane
 instance too (it sums in float32, as the plain version on the upcast
-planes does), and K4's
+planes does), its bf16 backward within bf16's rounding of the plain
+float32 gradient, and K4's
 backward within 1e-5 of the largest gradient of its plain version and of
 grid_sampler_2d_backward, both adding in float64 (its atomics add in no
 fixed order); the slices within the fp32 parity gate of ROADMAP.md (max-abs
@@ -507,14 +508,38 @@ def test_k4_bf16_instance_matches_plain(device, case):
 
 
 def test_k4_bf16_instance_raises_under_grad_mode(device):
-    """The bf16 instance has no backward: bf16 planes that require grad
-    raise under grad mode, and run under no_grad; other storage types
-    raise."""
-    planes = channels_last(torch.randn(1, 3, 32, 16, 16, device=device),
-                           torch.bfloat16)
-    coords = torch.rand(1, 100, 3, device=device) - 0.5
-    with pytest.raises(RuntimeError, match='float32 planes only'):
-        triplane_sample(planes.clone().requires_grad_(), coords, 1.0)
+    """Under grad mode the bf16 instance raises only for coordinates that
+    require grad, as the float32 one does. bf16 planes that require grad
+    get their gradient from the float32 backward kernel, counted in
+    launches_bf16, cast to bf16 once: within bf16's rounding (2^-8 of each
+    value) plus 1e-5 of the largest gradient (the kernel's float32 atomics
+    against the plain version's float64 sums) of the plain float32
+    gradient. Under no_grad they run; other storage types raise."""
+    g = torch.Generator(device=device).manual_seed(7)
+    planes = channels_last(torch.randn(1, 3, 32, 64, 48, generator=g,
+                                       device=device), torch.bfloat16)
+    coords = torch.rand(1, 4099, 3, generator=g, device=device) - 0.5
+    with pytest.raises(RuntimeError, match='planes only'):
+        triplane_sample(planes, coords.clone().requires_grad_(), 1.0)
+    p = planes.clone().requires_grad_()
+    before = (triplane_sample.launches_bf16,
+              triplane_sample_backward.launches,
+              triplane_sample_backward.launches_bf16)
+    out = triplane_sample(p, coords, 1.0)
+    assert out.dtype == torch.float32 and out.requires_grad
+    grad_out = torch.randn(out.shape, generator=g, device=device)
+    out.backward(grad_out)
+    torch.cuda.synchronize()
+    assert (triplane_sample.launches_bf16, triplane_sample_backward.launches,
+            triplane_sample_backward.launches_bf16) == \
+        (before[0] + 1, before[1], before[2] + 1)
+    want = triplane_sample_backward_plain(grad_out.double(), coords, 1.0,
+                                          64, 48)
+    assert p.grad.dtype == torch.bfloat16 and p.grad.shape == planes.shape
+    err = (p.grad.double() - want).abs()
+    scale = want.abs().max().item()
+    assert scale > 0 and bool(
+        (err <= 2 ** -8 * want.abs() + 1e-5 * scale).all())
     with torch.no_grad():
         out = triplane_sample(planes.clone().requires_grad_(), coords, 1.0)
     assert out.dtype == torch.float32 and not out.requires_grad

@@ -65,8 +65,9 @@ def test_plain_matches_pallas_kernel_interpret(rng):
 
 def test_plain_is_differentiable_like_jax(rng):
     """On CPU tensors K4's wrapper runs F.grid_sample, which carries
-    gradients to the planes and the coordinates (the CUDA kernel has no
-    backward and raises under grad mode, tests/test_torch_cuda.py). They
+    gradients to the planes and the coordinates (on the card K4's backward
+    gives the planes' gradient only, and coordinates that require grad
+    raise, tests/test_torch_cuda.py). They
     match jax.grad of the JAX package's sampling within 1e-4."""
     import jax
     planes = rng.randn(1, 3, 32, 16, 16).astype(np.float32)

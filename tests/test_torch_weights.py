@@ -92,8 +92,8 @@ def test_obj_io_matches_jax_package(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port (its CLIs and its training path included,
-    the augment pipe and the video dataset too, the checkpoint readers and
-    the metrics),
+    the augment pipe and the video dataset too, the checkpoint readers,
+    the metrics and the bench),
     and a generator built from it, pull in neither JAX nor any module of
     the JAX package, nor optax, click or PIL, which the card machine
     lacks."""
@@ -126,7 +126,8 @@ def test_port_imports_no_jax():
         "'next3d_tpu_torch.metrics.reenactment_distance', "
         "'next3d_tpu_torch.metrics.equivariance', "
         "'next3d_tpu_torch.metrics.metric_main', "
-        "'next3d_tpu_torch.cli.calc_metrics'} "
+        "'next3d_tpu_torch.cli.calc_metrics', "
+        "'next3d_tpu_torch.bench'} "
         "<= set(names), names\n"
         "from next3d_tpu_torch.models import (triplane_next3d,"
         " triplane_texture)\n"
@@ -140,6 +141,7 @@ def test_port_imports_no_jax():
         "rendering_kwargs={'superresolution_module': "
         "'SuperresolutionHybrid2X'})\n"
         "import next3d_tpu_torch.cli.main\n"
+        "import next3d_tpu_torch.bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'next3d_tpu', 'click', 'PIL', 'optax'))\n"
         "assert not bad, bad\n")
