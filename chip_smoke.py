@@ -190,6 +190,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      finite, positive value; the step times, peak memory and kernel
      launches each reports on stderr are logged. It ends with a
      {"bench": ...} line.
+ 19. data-parallel training (next3d_tpu_torch/parallel/): (a) the train
+     command's rank entry (cli/train.py run_rank) at world size 1 over
+     NCCL, at phase 13's config (512^2 FFHQ flagship, batch 4), 8 batches
+     in 2 ticks and a snapshot: the replica check runs at the snapshot and
+     passes, rank 0 alone wrote the run directory (its files, one events
+     file, a stats line a tick), every stat finite, K1, K4 and K4's
+     backward launched; img/s beside phase 13's, each phase's all-reduce
+     ms (Timing/<phase>/allreduce, synchronized) and its bucket's MiB,
+     peak memory; (b) two ranks on the one card over gloo (NCCL refuses
+     two ranks on one device), each its own process: the 512^2 flagship in
+     fp32 and a 512^2 dual discriminator, global batch 4 (2 a rank), the
+     parity tests' deterministic loss, Gmain, Greg, Dmain and Dreg at
+     learning rate 0: each all-reduced gradient against this process's
+     mean over the two halves on the same weights, within
+     tests/torch_train_parity.py assert_grads_match's bounds (grads_gate;
+     Greg's by its norm), each loss within 1e-4 relative and equal on both
+     ranks; then run_phases at the train command's learning rates, after
+     which both ranks' G, D and G_ema are bit-equal; the all-reduce ms;
+     (c) ``train --gpus N`` for one card more than visible raises, naming
+     both counts. It ends with a {"parallel": ...} line.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -240,12 +260,12 @@ The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 the in-repo synthetic head. The run uses no JAX. It ends with a
 {"train": ...} line, a {"train_variants": ...} line, a {"bf16": ...}
 line, a {"checkpoints": ...} line, a {"metrics": ...} line, a
-{"bench": ...} line, the card line, a JSON object with one entry per
-kernel (K1, K2, K4 and K4's backward with their training launches: phase
-13's, and for K2 phase 15's texture run; K1, K4 and K4's backward with
-phase 16's and phase 17's launches a command; K4's bf16 backward with
-phase 18's bf16 train bench) and the result line {"ok": true, "device":
-{...}}.
+{"bench": ...} line, a {"parallel": ...} line, the card line, a JSON
+object with one entry per kernel (K1, K2, K4 and K4's backward with their
+training launches: phase 13's, and for K2 phase 15's texture run; K1, K4
+and K4's backward with phase 16's and phase 17's launches a command and
+phase 19 (a)'s; K4's bf16 backward with phase 18's bf16 train bench) and
+the result line {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -2552,6 +2572,421 @@ def check_bench():
     return runs
 
 
+# phase 19 (b): the parity tests' loss (tests/torch_train_parity.py
+# LOSS_CFG: no conditioning swap, no blur, no style mixing) with constant
+# noise and midpoint depths, and the gains and learning rates of the train
+# command's defaults
+PARITY_LOSS = dict(gpc_reg_prob=0.0, gpc_reg_fade_kimg=0.0,
+                   neural_rendering_resolution_initial=64, density_reg=0.25,
+                   density_reg_p_dist=0.004, r1_gamma=4.0)
+PARITY_GAINS = {'Gmain': 1.0, 'Greg': 4.0, 'Dmain': 1.0, 'Dreg': 16.0}
+PARITY_LR = {'G': 0.0025, 'D': 0.002}
+# Greg's gradient, a difference of two that nearly cancel, is held by its
+# norm alone, as the parity tests hold it
+PARITY_PER_TENSOR = {'Gmain': True, 'Greg': False, 'Dmain': True,
+                     'Dreg': True}
+RANKS_TIMEOUT_S = 400
+
+
+def grads_gate(got, want, per_tensor):
+    """tests/torch_train_parity.py assert_grads_match's gate, on tensors:
+    the global norm within 1e-3 relative and, with ``per_tensor``, each
+    tensor within max-abs 2e-3 of its largest value plus 1e-3 of its
+    sub-network's largest. Returns (passed, worst max-abs / largest and its
+    name, the norms, the names over the per-tensor gate)."""
+    net_scale = {}
+    for k, w in want.items():
+        net = k.split('.')[0]
+        net_scale[net] = max(net_scale.get(net, 0.0), float(w.abs().max()))
+    worst, failed = (0.0, None), []
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[k] - w).abs().max())
+        if per_tensor and not err <= 2e-3 * scale + 1e-3 * net_scale[
+                k.split('.')[0]]:
+            failed.append(k)
+        if scale > 0 and err / scale >= worst[0]:
+            worst = (err / scale, k)
+    norms = [math.sqrt(sum(float(t[k].double().square().sum())
+                           for k in want)) for t in (got, want)]
+    return (not failed and abs(norms[0] - norms[1]) <= 1e-3 * norms[1],
+            worst, norms, failed)
+
+
+def parity_networks(mesh, spec):
+    """Phase 19 (b)'s G and D of ``spec`` (the flagship of phase 6's seed
+    and a dual discriminator of the train command's widths) on its device,
+    and the parity loss."""
+    from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
+    from next3d_tpu_torch.nn.discriminator import DualDiscriminator
+    from next3d_tpu_torch.train.loss import LossConfig, StyleGAN2Loss
+    G = TriPlaneGenerator(topology_path=mesh, **spec['G_kwargs'],
+                          generator=torch.Generator().manual_seed(SEED))
+    D = DualDiscriminator(**spec['D_kwargs'],
+                          generator=torch.Generator().manual_seed(SEED + 1))
+    G, D = G.to(spec['device']), D.to(spec['device'])
+    return G, D, StyleGAN2Loss(G, D, LossConfig(**PARITY_LOSS),
+                               deterministic=True)
+
+
+def parity_inputs(files, device):
+    """Phase 19 (b)'s networks and global batch 4 of phase 13's dataset:
+    latents of a seed, its labels and verts (items 4-7) for G, its images
+    and labels (items 0-3) as the reals, and Greg's 1000 points an image
+    with their perturbations and ray directions."""
+    import numpy as np
+    rs = np.random.RandomState(SEED + 3)
+    initial = rs.rand(4, 1000, 3).astype(np.float32) * 2 - 1
+    perturbed = initial + rs.randn(4, 1000, 3).astype(np.float32) * 0.004
+    dirs = rs.randn(4, 2000, 3).astype(np.float32)
+    images = np.stack(files['images'][:4]).transpose(0, 3, 1, 2)
+    spec = dict(
+        device=str(device), G_kwargs=G_KWARGS,
+        D_kwargs=dict(c_dim=25, img_resolution=512, img_channels=3,
+                      channel_base=32768, channel_max=512,
+                      epilogue_kwargs=dict(mbstd_group_size=4)),
+        batch=dict(gen_z=torch.from_numpy(rs.randn(4, 512).astype(
+            np.float32)), gen_c=torch.from_numpy(files['labels'][4:8]),
+            gen_v=files['v'][4:8].cpu(),
+            real_c=torch.from_numpy(files['labels'][:4])),
+        real=torch.from_numpy(images.astype(np.float32) / 127.5 - 1),
+        draws=tuple(torch.from_numpy(x) for x in (initial, perturbed, dirs)))
+    return spec
+
+
+def parity_reference(mesh, spec, device):
+    """The parent's side of phase 19 (b): each phase's loss and gradient
+    (times its gain) on each half of the batch, then their mean over the
+    halves, with the parity loss on the same weights; returns
+    {phase: (loss, {name: gradient on the host})}."""
+    from next3d_tpu_torch.train.train_step import trainable_mask
+    G, D, loss = parity_networks(mesh, spec)
+    sched, nrr = loss.schedules(0)
+    nets = {'G': G, 'D': D}
+    out = {}
+    for h in (slice(0, 2), slice(2, 4)):
+        batch = {k: x[h].to(device) for k, x in spec['batch'].items()}
+        real = loss.prepare_real(spec['real'][h].to(device), 0.0, nrr)
+        draws = [tuple(x[h].to(device) for x in spec['draws'])]
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        phases = {
+            'Gmain': ('G', lambda: loss.gmain_loss(batch, gen, sched, nrr)),
+            'Greg': ('G', lambda: loss.greg_loss(batch, gen, sched, draws)),
+            'Dmain': ('D', lambda: loss.dmain_loss(batch, real, gen, sched,
+                                                   nrr)),
+            'Dreg': ('D', lambda: loss.dreg_loss(batch, real, gen, sched))}
+        for phase, (net, fn) in phases.items():
+            value = fn()[0]
+            mask = trainable_mask(nets[net])
+            named = {k: p for k, p in nets[net].named_parameters()
+                     if mask[k]}
+            grads = torch.autograd.grad(value * PARITY_GAINS[phase],
+                                        list(named.values()),
+                                        allow_unused=True)
+            grads = {k: (g if g is not None else torch.zeros_like(p))
+                     .detach() / 2 for (k, p), g in zip(named.items(), grads)}
+            if phase in out:
+                prev_loss, prev = out[phase]
+                out[phase] = (prev_loss + float(value.detach()) / 2,
+                              {k: (prev[k] + g).cpu() for k, g in
+                               grads.items()})
+            else:
+                out[phase] = (float(value.detach()) / 2, grads)
+    del G, D, loss
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    return out
+
+
+def digest(*modules):
+    """A hash of the modules' state_dict bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for m in modules:
+        for k, v in m.state_dict().items():
+            h.update(k.encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_rank(rank, init_file, spec_path, out_dir):
+    """One of phase 19 (b)'s two ranks on the one card over gloo: the four
+    phases on its half of the batch with the learning rates 0 (each phase
+    sees the same weights; the gradient Adam receives, all-reduced, is
+    kept), then ``run_phases`` with the real learning rates and Greg's
+    random points of the rank's own generator; saves the gradients (rank
+    0), the stats, the all-reduce times and a hash of G, D and G_ema."""
+    import copy
+    from next3d_tpu_torch.parallel import dist
+    from next3d_tpu_torch.train.train_step import (TrainStep,
+                                                   make_optimizer,
+                                                   trainable_parameters)
+    from next3d_tpu_torch.train.training_loop import PhaseTimer, rank_seed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    device = torch.device(spec['device'])
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    mesh, _ = load_head()
+    G, D, loss = parity_networks(mesh, spec)
+    G_ema = copy.deepcopy(G).eval()
+    step = TrainStep(
+        loss,
+        make_optimizer(trainable_parameters(G), 0.0, 0.0, 0.99, 1e-8,
+                       reg_interval=4),
+        make_optimizer(trainable_parameters(D, D.frozen_paths()), 0.0, 0.0,
+                       0.99, 1e-8, reg_interval=16))
+    grads = []
+    for opt, net in ((step.opt_G, G), (step.opt_D, D)):
+        names = {p: k for k, p in net.named_parameters()}
+        adam_step = opt.step
+
+        def capture(*a, _opt=opt, _names=names, _step=adam_step, **k):
+            if len(grads) < 4 and rank == 0:
+                grads.append({_names[p]: p.grad.cpu() for g in
+                              _opt.param_groups for p in g['params']})
+            return _step(*a, **k)
+        opt.step = capture
+
+    dist.init(rank, 2, 'gloo', init_file)
+    try:
+        batch = {k: dist.shard_batch(x, device)
+                 for k, x in spec['batch'].items()}
+        real = dist.shard_batch(spec['real'], device)
+        draws = [tuple(dist.shard_batch(x, device) for x in spec['draws'])]
+        gen = torch.Generator(device=device).manual_seed(rank_seed(SEED,
+                                                                   rank))
+        sched, nrr = loss.schedules(0)
+        timer = PhaseTimer(device)
+        stats = {}
+        stats.update(step.gmain(batch, gen, sched, nrr, timer=timer))
+        stats.update(step.greg(batch, gen, PARITY_GAINS['Greg'], sched,
+                               draws=draws, timer=timer))
+        stats.update(step.dmain(batch, real, gen, sched, nrr, timer=timer))
+        stats.update(step.dreg(batch, real, PARITY_GAINS['Dreg'], gen,
+                               sched, nrr, timer=timer))
+        first = timer.report()
+        timer.reset()
+        for opt, lr in ((step.opt_G, PARITY_LR['G']),
+                        (step.opt_D, PARITY_LR['D'])):
+            for group in opt.param_groups:
+                group['lr'] = lr
+        step.run_phases(G_ema, batch, real, gen, sched, nrr, do_greg=True,
+                        do_dreg=True, ema_beta=0.5, timer=timer)
+        result = dict(grads=grads, stats={k: float(v) for k, v in
+                                          stats.items()},
+                      allreduce_s=first, run_phases_s=timer.report(),
+                      digest=digest(G, D, G_ema),
+                      peak_gb=torch.cuda.max_memory_allocated(device)
+                      / 2 ** 30 if device.type == 'cuda' else None)
+    finally:
+        dist.teardown()
+    torch.save(result, os.path.join(out_dir, f'rank{rank}.pt'))
+
+
+def check_parallel(files, mesh, device, card, kernels, phase13):
+    """Phase 19: data-parallel training. Returns its launches (of (a)) and
+    its summary."""
+    summary = dict(card=card, world_size_1_nccl=check_nccl_world_1(
+        files, device, card, kernels, phase13))
+    launches = summary['world_size_1_nccl'].pop('launches')
+    summary['two_ranks_gloo'] = check_two_ranks(files, mesh, device, card)
+    summary['gpus_over_visible'] = check_gpus_raise(files)
+    return launches, summary
+
+
+def bucket_mib(module, stats, w_dim=0):
+    """MiB of a phase's all-reduce bucket: the module's trainable
+    gradients, the phase's stats and w_mean (float32)."""
+    n = sum(p.numel() for p in module.parameters() if p.requires_grad)
+    return (n + stats + w_dim) * 4 / 2 ** 20
+
+
+def check_nccl_world_1(files, device, card, kernels, phase13):
+    """Phase 19 (a): the train command's rank entry (``cli/train.py
+    run_rank``) at world size 1 over NCCL, at phase 13's config: batch 4,
+    two ticks of 4 batches, a snapshot after the second. The replica check
+    runs at the snapshot and passes; rank 0 alone wrote the run directory.
+    Logs img/s beside phase 13's, the all-reduce ms of each phase, the
+    buckets' MiB and the peak memory."""
+    from next3d_tpu_torch.cli import main as cli
+    from next3d_tpu_torch.cli.train import run_rank
+    from next3d_tpu_torch.parallel import dist
+
+    run = os.path.join(files['root'], 'run_nccl')
+    argv = ['train', '--outdir', run, '--data', files['data'], '--batch',
+            '4', '--kimg', '0.032', '--tick', '0.016', '--snap', '1',
+            '--topology-path', files['obj'], '--timing-every', '1']
+    opts = vars(cli.build_parser().parse_args(argv))
+    opts.pop('command')
+    opts.pop('device')
+    checks = []
+    check = dist.check_replica_consistency
+
+    def counting(*args, **kwargs):
+        check(*args, **kwargs)
+        checks.append(1)
+
+    dist.check_replica_consistency = counting
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            result, counts = counted(lambda: run_rank(
+                0, 1, 'nccl', os.path.join(tmp, 'rendezvous'), opts, 'cuda'),
+                kernels)
+    finally:
+        dist.check_replica_consistency = check
+    seconds = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    listing = sorted(os.listdir(run))
+    events = [f for f in listing if f.startswith('events.out.')]
+    snap = 'network-snapshot-000000.pkl'
+    want = {'training_options.json', 'stats.jsonl', 'reals.png',
+            'fakes000000.png', 'fakes000000_raw.png', snap,
+            snap.replace('.pkl', '.json'), *events}
+    with open(os.path.join(run, 'stats.jsonl')) as f:
+        lines = len(f.readlines())
+    first, warm = result['ticks'][0], result['ticks'][-1]
+    warm_allreduce = {p: 1e3 * warm[f'Timing/{p}/allreduce']
+                      for p in ('Gmain', 'Greg', 'Dmain')
+                      if f'Timing/{p}/allreduce' in warm}
+    buckets = {'Gmain': bucket_mib(result['G'], 3, 512),
+               'Greg': bucket_mib(result['G'], 1),
+               'Dmain': bucket_mib(result['D'], 5, 512),
+               'Dreg': bucket_mib(result['D'], 2)}
+    out = dict(seconds=seconds, images_per_second=warm['images_per_second'],
+               phase13_images_per_second=phase13['images_per_second'],
+               allreduce_ms_first_tick={p: 1e3 * first[
+                   f'Timing/{p}/allreduce'] for p in PARITY_GAINS},
+               allreduce_ms_warm=warm_allreduce, bucket_mib=buckets,
+               phase_ms_warm={p: 1e3 * warm[f'Timing/{p}'] for p in
+                              ('Gmain', 'Dmain', 'G_ema')},
+               peak_device_mem_gb=peak, replica_checks=len(checks),
+               launches={k: counts[k] for k in ('K1', 'K4', 'K4b')})
+    def rounded(d, digits=3):
+        return {k: round(x, digits) for k, x in d.items()}
+
+    log(f'phase 19 (a): train through the rank entry at world size 1 over '
+        f'NCCL, 512^2 FFHQ, batch 4, 8 batches in 2 ticks: '
+        f'{seconds:.1f} s with its set-up; last tick '
+        f'{out["images_per_second"]:.3f} img/s (phase 13, same call: '
+        f'{phase13["images_per_second"]:.3f}); all-reduce ms, first tick '
+        f'{rounded(out["allreduce_ms_first_tick"])}, warm '
+        f'{rounded(warm_allreduce)}; bucket MiB {rounded(buckets, 2)}; '
+        f'peak device memory {peak:.2f} GiB; replica checks passed '
+        f'{len(checks)}; launches {counts}; run dir {listing}; on {card}')
+    if not checks:
+        raise RuntimeError('phase 19 (a): the replica check never ran')
+    if set(listing) != want or len(events) != 1 or lines != 2:
+        raise RuntimeError(f'phase 19 (a): the run dir is not one '
+                           f'writer\'s: {listing}, {lines} stats lines')
+    bad = [k for t in result['ticks'] for k, x in t.items()
+           if isinstance(x, float) and not math.isfinite(x)]
+    idle = [k for k in ('K1', 'K4', 'K4b') if counts[k] <= 0]
+    if bad or idle:
+        raise RuntimeError(f'phase 19 (a): not finite {bad}, or kernels '
+                           f'{idle} never launched')
+    del result
+    return out
+
+
+def check_two_ranks(files, mesh, device, card):
+    """Phase 19 (b): two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), the 512^2 flagship in fp32 at global batch 4 (2
+    a rank), the parity tests' deterministic loss: each phase's all-reduced
+    gradient against this process's mean over the two halves on the same
+    weights (``grads_gate``), the losses within 1e-4 relative, and both
+    ranks' G, D and G_ema bit-equal after ``run_phases``."""
+    spec = parity_inputs(files, device)
+    t0 = time.time()
+    want = parity_reference(mesh, spec, device)
+    ref_s = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = os.path.join(tmp, 'spec.pt')
+        torch.save(spec, spec_path)
+        t0 = time.time()
+        context = torch.multiprocessing.spawn(
+            parallel_rank, nprocs=2, join=False,
+            args=(os.path.join(tmp, 'rendezvous'), spec_path, tmp))
+        deadline = time.time() + RANKS_TIMEOUT_S
+        while not context.join(timeout=max(1.0, deadline - time.time())):
+            if time.time() > deadline:
+                for p in context.processes:
+                    p.kill()
+                raise RuntimeError('phase 19 (b): the ranks did not end')
+        ranks_s = time.time() - t0
+        got = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
+                          weights_only=False) for r in (0, 1)]
+    stat = {'Gmain': 'Loss/G/loss', 'Greg': 'Loss/G/reg',
+            'Dmain': 'Loss/D/loss', 'Dreg': 'Loss/D/reg'}
+    out = dict(reference_s=ref_s, ranks_s=ranks_s, phases={},
+               allreduce_ms={k.split('/')[1]: 1e3 * v for k, v in
+                             got[0]['allreduce_s'].items()
+                             if k.endswith('/allreduce')},
+               allreduce_ms_rank1={k.split('/')[1]: 1e3 * v for k, v in
+                                   got[1]['allreduce_s'].items()
+                                   if k.endswith('/allreduce')},
+               run_phases_ms={k: 1e3 * v for k, v in
+                              got[0]['run_phases_s'].items()},
+               peak_device_mem_gb=[r['peak_gb'] for r in got],
+               replicas_bit_equal=got[0]['digest'] == got[1]['digest'])
+    failed = []
+    for i, phase in enumerate(PARITY_GAINS):
+        want_loss, want_grads = want[phase]
+        loss = got[0]['stats'][stat[phase]]
+        rel = abs(loss - want_loss) / abs(want_loss)
+        ok, worst, norms, over = grads_gate(got[0]['grads'][i], want_grads,
+                                            PARITY_PER_TENSOR[phase])
+        same = loss == got[1]['stats'][stat[phase]]
+        out['phases'][phase] = dict(loss=loss, reference_loss=want_loss,
+                                    loss_rel=rel, grads_pass=ok,
+                                    worst=worst, norms=norms, over=over,
+                                    loss_same_on_ranks=same)
+        log(f'phase 19 (b) {phase}: loss {loss:.7g} vs the halves\' mean '
+            f'{want_loss:.7g} (relative {rel:.3g}, tolerance 1e-4; equal on '
+            f'both ranks {same}); gradient worst max-abs / largest '
+            f'{worst[0]:.3g} ({worst[1]}), global norm {norms[0]:.7g} vs '
+            f'{norms[1]:.7g}; gate passed {ok}')
+        if not (ok and rel <= 1e-4 and same):
+            failed.append(phase)
+    log(f'phase 19 (b): two gloo ranks on one card, 512^2, batch 2 a rank: '
+        f'all-reduce ms {out["allreduce_ms"]} (rank 1 '
+        f'{out["allreduce_ms_rank1"]}), run_phases ms a phase '
+        f'{ {k: round(v, 2) for k, v in out["run_phases_ms"].items()} }'
+        f'; G, D, G_ema bit-equal on both ranks after run_phases '
+        f'{out["replicas_bit_equal"]}; peak GiB {out["peak_device_mem_gb"]}; '
+        f'reference {ref_s:.1f} s, ranks {ranks_s:.1f} s; on {card}')
+    if failed or not out['replicas_bit_equal']:
+        raise RuntimeError(f'phase 19 (b): phases {failed} out of bounds, '
+                           f'or the replicas differ')
+    return out
+
+
+def check_gpus_raise(files):
+    """Phase 19 (c): ``train --gpus N`` for one card more than this machine
+    shows raises, naming both counts."""
+    from next3d_tpu_torch.cli import main as cli
+    n = torch.cuda.device_count() + 1
+    argv = ['train', '--outdir', os.path.join(files['root'], 'run_gpus'),
+            '--data', files['data'], '--batch', '4', '--kimg', '0.004',
+            '--topology-path', files['obj'], '--device', 'cuda', '--gpus',
+            str(n)]
+    try:
+        cli.run(argv)
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise RuntimeError(f'phase 19 (c): --gpus {n} did not raise')
+    log(f'phase 19 (c): train --gpus {n} on {n - 1} visible card(s) '
+        f'raises: {message}')
+    if f'--gpus {n}' not in message or f'{n - 1} visible' not in message:
+        raise RuntimeError('phase 19 (c): the error does not name the counts')
+    return message
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
@@ -2763,19 +3198,29 @@ def main():
                                                  kernels)
         metrics['wall_s'] = time.time() - t0
         log(f'phase 17: {metrics["wall_s"]:.1f} s')
+
+        t0 = time.time()
+        stats['K4b_bf16'] = check_k4_bf16_backward(device)
+        remat = check_remat(G, mesh, head_lms, device, card)
+        # the bench's processes take the card's memory: free this one's
+        # cache
+        torch.cuda.empty_cache()
+        bench_runs = check_bench()
+        launches['K4b_bf16'] = \
+            bench_runs['train bf16=1']['launches']['K4b_bf16']
+        phase18 = dict(remat=remat, runs=bench_runs, card=card,
+                       wall_s=time.time() - t0)
+        log(f'phase 18: {phase18["wall_s"]:.1f} s')
+
+        t0 = time.time()
+        # phase 19's two ranks take the card's memory too
+        torch.cuda.empty_cache()
+        parallel_launches, parallel = check_parallel(
+            files, mesh, device, card, kernels, train)
+        parallel['wall_s'] = time.time() - t0
+        log(f'phase 19: {parallel["wall_s"]:.1f} s')
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
-
-    t0 = time.time()
-    stats['K4b_bf16'] = check_k4_bf16_backward(device)
-    remat = check_remat(G, mesh, head_lms, device, card)
-    # the bench's processes take the card's memory: free this one's cache
-    torch.cuda.empty_cache()
-    bench_runs = check_bench()
-    launches['K4b_bf16'] = bench_runs['train bf16=1']['launches']['K4b_bf16']
-    phase18 = dict(remat=remat, runs=bench_runs, card=card,
-                   wall_s=time.time() - t0)
-    log(f'phase 18: {phase18["wall_s"]:.1f} s')
 
     names = {
         'K1': ('rasterize_binned_uv', 'raster_binned_uv.cu',
@@ -2820,12 +3265,15 @@ def main():
             # phase 17's commands: calc-metrics and train --metrics
             entry['metrics_launches'] = {cmd: n[k] for cmd, n in
                                          metric_launches.items() if k in n}
+            # phase 19 (a): train through the rank entry over NCCL
+            entry['parallel_launches'] = parallel_launches[k]
     log(json.dumps({'train': train}))
     log(json.dumps({'train_variants': variants}))
     log(json.dumps({'bf16': bf16}))
     log(json.dumps({'checkpoints': checkpoints}))
     log(json.dumps({'metrics': metrics}))
     log(json.dumps({'bench': phase18}))
+    log(json.dumps({'parallel': parallel}))
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

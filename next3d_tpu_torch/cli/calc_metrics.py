@@ -9,7 +9,9 @@ either package or a reference network pickle (``common.load_generator``,
 through ``utils/checkpoint.py read_generator``); the dataset's images,
 labels and verts are those of ``--data`` at the generator's resolution.
 Each metric's record is printed as a JSON line and, with ``--run-dir``,
-appended to ``metric-<name>.jsonl`` there.
+appended to ``metric-<name>.jsonl`` there. With ``--device cuda`` the
+generator's batches split over every visible card, as the JAX command
+shards them over every local device (``metrics/metric_utils.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ def calc_metrics(network_path, metrics, data_path, topology_path, run_dir,
     their records."""
     from ..data.dataset import ImageFolderDataset
     from ..metrics import calc_metric, is_valid_metric, list_valid_metrics
+    from ..parallel.dist import local_devices
     from .common import load_generator
 
     names = metrics.split(',')
@@ -49,7 +52,7 @@ def calc_metrics(network_path, metrics, data_path, topology_path, run_dir,
     for metric in names:
         record = calc_metric(metric, run_dir=run_dir, generator=G,
                              dataset=dataset, batch_size=batch_size,
-                             device=device)
+                             device=device, devices=local_devices(device))
         print(json.dumps(record, default=str), flush=True)
         records.append(record)
     return records

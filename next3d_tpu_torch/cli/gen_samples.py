@@ -8,7 +8,9 @@ marching-tetrahedra ``.ply``.
 
 The tri-planes are built once per seed; the 3 views are rendered from them,
 and the sigma grid is decoded from them in chunks of at most ``max_batch``
-points on the one device, each chunk one launch of kernel K4 on the card.
+points a card, each chunk split over every visible card for ``--device
+cuda`` (the JAX command shards it over every local device), each card's
+part one launch of kernel K4.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.triplane import C_KERNEL
+from ..parallel.dist import local_devices, replicas, split_over_devices
 from .common import (DEMO_LMS, DEMO_OBJ, camera_label, inference,
                      load_demo_verts, load_generator, save_image_grid,
                      synchronize)
@@ -41,6 +44,7 @@ def generate_images(network_path, seeds, truncation_psi=0.7,
     with inference():
         G = generator if generator is not None else load_generator(
             network_path, topology_path or obj_path, device)
+        devices = local_devices(device)
         device = G.orth_scale.device
         v = torch.from_numpy(load_demo_verts(obj_path, lms_path)).to(device)
         cond_c = torch.from_numpy(camera_label(0, 0, fov=fov_deg)).to(device)
@@ -68,32 +72,44 @@ def generate_images(network_path, seeds, truncation_psi=0.7,
             if shapes:
                 stats['sigma_seconds'].append(extract_shape(
                     G, planes, shape_res, max_batch,
-                    os.path.join(outdir, f'seed{seed:04d}{shape_format}')))
+                    os.path.join(outdir, f'seed{seed:04d}{shape_format}'),
+                    devices))
                 stats['sigma_points'] = shape_res ** 3
             stats['seconds_per_seed'].append(time.perf_counter() - t0)
     return stats
 
 
-def extract_shape(G, planes, shape_res, max_batch, out_path):
+def extract_shape(G, planes, shape_res, max_batch, out_path, devices=None):
     """The sigma of ``planes`` at the ``shape_res``^3 grid of
-    ``create_samples``, decoded in chunks of at most ``max_batch`` points
-    (and of K4's 32-bit limit), its border padded to -1000 (reference
-    :232-239), to ``out_path`` (.mrc, else a .ply isosurface at level 10).
-    Returns the seconds the grid took, its copy to the host included."""
+    ``create_samples``, decoded in chunks of at most ``max_batch`` points a
+    device (and of K4's 32-bit limit), each chunk split over ``devices``
+    (default: the planes' device alone; ``G`` and ``planes`` on the
+    first), its border padded to -1000 (reference :232-239), to
+    ``out_path`` (.mrc, else a .ply isosurface at level 10). Returns the
+    seconds the grid took, its copy to the host included."""
     from ..render.shape_utils import (create_samples, save_mrc,
                                       save_ply_from_sigma)
     device = planes.device
-    synchronize(device)
+    devices = devices or [device]
+    Gs, planes_on = replicas(G, devices), [planes] + [
+        planes.to(d) for d in devices[1:]]
+    for d in devices:
+        synchronize(d)
     t0 = time.perf_counter()
     samples, _, _ = create_samples(
         N=shape_res, cube_length=G.rendering_kwargs['box_warp'] * 1)
     total = samples.shape[0]
-    chunk = max(1, min(max_batch, total, MAX_CHUNK))
+    chunk = max(1, min(max_batch, total, MAX_CHUNK)) * len(devices)
+
+    def decode(i, coords):
+        return Gs[i].sample_with_planes(planes_on[i], coords[None],
+                                        coords[None])['sigma'][0, :, 0]
+
     sigmas = torch.empty(total, dtype=torch.float32, device=device)
     for lo in range(0, total, chunk):
-        coords = torch.from_numpy(samples[lo:lo + chunk]).to(device)[None]
-        out = G.sample_with_planes(planes, coords, coords)
-        sigmas[lo:lo + chunk] = out['sigma'][0, :, 0]
+        coords = torch.from_numpy(samples[lo:lo + chunk]).to(device)
+        sigmas[lo:lo + chunk] = split_over_devices(decode, [coords],
+                                                   devices)
     sigmas = sigmas.cpu().numpy().reshape(shape_res, shape_res, shape_res)
     seconds = time.perf_counter() - t0
 

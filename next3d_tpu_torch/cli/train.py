@@ -1,5 +1,5 @@
 """``python -m next3d_tpu_torch.cli.main train``: GAN training on one
-device.
+device or, data-parallel, on several.
 
 Counterpart of next3d_tpu/cli/train.py (reference train_next3d.py:224-422):
 the same options with the same defaults (``add_options``), the per-dataset
@@ -8,6 +8,18 @@ regularization intervals G = density_reg_every and D = 16, the EMA
 half-life batch * 10 / 32 kimg, a grid of reals and of G_ema's fakes, plus
 ``--device`` (default ``cuda``) and ``--timing-every``. ``--kimg`` and
 ``--tick`` take fractions of a kimg too, for short runs.
+
+``--gpus N`` trains on N cards, one process a card
+(``torch.multiprocessing.spawn``; rank r on ``cuda:r`` over NCCL, meeting
+at a ``file://`` rendezvous in a temporary directory), each rank on
+``batch / N`` of the global batch (``train/training_loop.py``). Without
+``--gpus``, ``--device cuda`` trains on every visible card, as the JAX
+command uses every local device; ``--device cuda:K`` on that card alone.
+With ``--device cpu``, ``--gpus N`` runs N CPU ranks over gloo, each on
+its share of the parent's torch threads. More ranks than visible cards,
+or a batch that does not split over them, raises. The kernels are built
+before the spawn, so the ranks load one build. A world of one is the
+one-process path, unchanged.
 
 As the JAX command: ``--model-version texture`` trains
 ``TriPlaneTextureGenerator``; ``--aug ada|fixed`` puts the reference's
@@ -32,9 +44,6 @@ Float32 without TF32 throughout, as the JAX package trains at float32.
 the training dataset, each appended to ``metric-<name>.jsonl`` in the run
 directory; a metric that fails is printed as ``metric <name> FAILED`` and
 training goes on, as in the JAX package (JAX training_loop.py:318-338).
-
-Not ported yet, and raising when asked for (ROADMAP.md Queue 1): more than
-one device (``--gpus``).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import tempfile
 
 import numpy as np
 import torch
@@ -139,11 +149,30 @@ def parse_metric_list(s):
     return [m.strip() for m in str(s).split(',') if m.strip()]
 
 
-def _unported(opts):
-    if (opts['num_devices'] or 1) > 1:
-        raise NotImplementedError(
-            'training on more than one device (--gpus) is not ported to '
-            'next3d_tpu_torch yet (ROADMAP.md Queue 1 item 4)')
+def num_ranks(gpus, device, batch):
+    """The world size of ``--gpus`` on ``device``: ``gpus``; without it
+    every visible card for ``cuda``, one process for ``cuda:K`` or
+    ``cpu``. Raises where it exceeds the visible cards (no fallback) or
+    does not divide ``batch`` (JAX :297-298)."""
+    device = torch.device(device)
+    if gpus is None:
+        gpus = torch.cuda.device_count() if device.type == 'cuda' and \
+            device.index is None else 1
+    if gpus < 1:
+        raise ValueError(f'--gpus {gpus}: no card to train on (--device '
+                         f'{device}, {torch.cuda.device_count()} visible)')
+    if device.type == 'cuda' and gpus > 1:
+        if gpus > torch.cuda.device_count():
+            raise ValueError(f'--gpus {gpus} asks for more cards than the '
+                             f'{torch.cuda.device_count()} visible')
+        if device.index is not None:
+            raise ValueError(f'--gpus {gpus} trains on cuda:0 to '
+                             f'cuda:{gpus - 1}; --device {device} names '
+                             f'one card')
+    if batch % gpus:
+        raise ValueError(f'--batch {batch} does not split over --gpus '
+                         f'{gpus}')
+    return gpus
 
 
 def build_training(opts, device):
@@ -295,20 +324,68 @@ def make_dataset(opts):
 
 def train(device='cuda', **opts):
     """Run the command; returns the loop's result (``cur_nimg``, the ticks'
-    records and ``ada_p``) with the networks (``G``, ``D``, ``G_ema``)."""
-    _unported(opts)
+    records and ``ada_p``) with, in one process, the networks (``G``,
+    ``D``, ``G_ema``); from several ranks, rank 0's result alone (the
+    networks are in its snapshots)."""
     if opts['dry_run']:
         print('dry run OK:')
         print(json.dumps({k: v for k, v in opts.items()}, indent=2,
                          default=str))
         return None
+    world = num_ranks(opts['num_devices'], device, opts['batch_size'])
     device = torch.device(device)
-    return fit(opts, build_training(opts, device), device)
+    if world == 1:
+        return fit(opts, build_training(opts, device), device)
+    return spawn(opts, device.type, world)
+
+
+def spawn(opts, device_type, world):
+    """Train on ``world`` ranks, one process each (rank r on ``cuda:r``
+    over NCCL, or on the CPU over gloo); returns rank 0's result."""
+    if device_type == 'cuda':
+        from ..ops import cuda_build
+        cuda_build.build_all(list(cuda_build.SIGNATURES))
+    threads = max(1, torch.get_num_threads() // world)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, 'result.pt')
+        torch.multiprocessing.spawn(
+            _spawned, nprocs=world, join=True,
+            args=(world, 'nccl' if device_type == 'cuda' else 'gloo',
+                  os.path.join(tmp, 'rendezvous'), opts, device_type, out,
+                  threads))
+        return torch.load(out, weights_only=False)
+
+
+def _spawned(rank, world, backend, init_file, opts, device_type, out,
+             threads):
+    torch.set_num_threads(threads)
+    result = run_rank(rank, world, backend, init_file, opts, device_type)
+    if rank == 0:
+        torch.save({k: v for k, v in result.items()
+                    if k not in ('G', 'D', 'G_ema')}, out)
+
+
+def run_rank(rank, world, backend, init_file, opts, device_type):
+    """One rank of a run of ``world``: join the process group, build the
+    networks on ``cuda:rank`` (or the CPU), train, leave the group; returns
+    ``fit``'s result on this rank."""
+    from ..parallel import dist
+    if device_type == 'cuda':
+        device = torch.device('cuda', rank)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device('cpu')
+    dist.init(rank, world, backend, init_file)
+    try:
+        return fit(opts, build_training(opts, device), device)
+    finally:
+        dist.teardown()
 
 
 def fit(opts, training, device):
     """Train ``training`` (``build_training``'s networks, loss, step, config
     and loop kwargs) on the dataset of ``opts``."""
+    from ..parallel import dist
     from ..train.training_loop import training_loop
     from .common import float32_math, save_image_grid
 
@@ -318,7 +395,6 @@ def fit(opts, training, device):
     # training_loop.py:277-282, :428-435), a clip's first frame (JAX
     # :276-286)
     outdir = opts['outdir']
-    os.makedirs(outdir, exist_ok=True)
     vis_n = int(min(16, opts['batch_size'], len(dataset)))
     vis_rnd = np.random.RandomState(opts['seed'])
     items = [dataset[int(i)] for i in vis_rnd.choice(len(dataset), vis_n,
@@ -327,8 +403,10 @@ def fit(opts, training, device):
     def frame0(a, base_ndim):
         return a[0] if a.ndim == base_ndim + 1 else a
 
-    save_image_grid(np.stack([frame0(im, 3) for im, _, _ in items]),
-                    os.path.join(outdir, 'reals.png'), drange=(0, 255))
+    if dist.is_main():
+        os.makedirs(outdir, exist_ok=True)
+        save_image_grid(np.stack([frame0(im, 3) for im, _, _ in items]),
+                        os.path.join(outdir, 'reals.png'), drange=(0, 255))
     vis = dict(gen_z=vis_rnd.randn(vis_n, 512).astype(np.float32),
                gen_c=np.stack([frame0(c, 1) for _, c, _ in items]
                               ).astype(np.float32),

@@ -11,8 +11,16 @@ features return to the host as numpy, where ``FeatureStats`` accumulates
 them in float64 as the JAX package does, so a cache file written by either
 package is read by the other. The generator loop draws its dataset items,
 labels and latents from ``np.random.RandomState(seed)`` in the JAX loop's
-order (JAX :210-221), so a seed gives both packages the same draws. The
-JAX loop shards a batch over the devices of its mesh; the port runs on one.
+order (JAX :210-221), so a seed gives both packages the same draws. As
+the JAX loop shards a batch over its devices (JAX :196-217), the port
+splits each generated batch: over the ranks of a training run
+(``parallel/dist.py``), each rank generating and detecting its rows, the
+features gathered in batch order on every rank; or, in one process, over
+``MetricOptions.devices`` (``calc-metrics``: every visible card), each
+card generating its rows with a copy of the generator, the images gathered
+on ``device`` for the detector. Either way ``FeatureStats`` receives the
+batch whole and in order, as from one card. The dataset loop runs whole
+on each rank.
 
 The detector is Inception-2015: ``NEXT3D_INCEPTION_PATH`` names the
 reference's TorchScript pickle, which ``inception.py`` converts into the
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 
 from ..cli.common import inference
+from ..parallel import dist
 
 
 @dataclass
@@ -53,6 +62,9 @@ class MetricOptions:
     cache_dir: Optional[str] = None
     seed: int = 0
     device: Any = 'cuda'
+    # the cards a generated batch splits over in one process, ``device``
+    # (the generator's) first; None: ``device`` alone
+    devices: Any = None
 
 
 class FeatureStats:
@@ -205,14 +217,27 @@ def draw_conditioning(opts, rnd):
 def compute_feature_stats_for_generator(opts: MetricOptions, max_items=None,
                                         **stats_kwargs):
     detector = get_detector(opts)
-    G = opts.generator
+    devices = opts.devices or [torch.device(opts.device)]
+    Gs = dist.replicas(opts.generator, devices)
     stats = FeatureStats(max_items=max_items or opts.num_items,
                          **stats_kwargs)
     rnd = np.random.RandomState(opts.seed)
+
+    def generate(i, z, c, v=None):
+        ws = Gs[i].mapping(z, c, truncation_psi=opts.truncation_psi)
+        return Gs[i].synthesis(ws, c, v, noise_mode='const')['image']
+
     with inference():
         while not stats.is_full():
-            z, c, v = draw_conditioning(opts, rnd)
-            ws = G.mapping(z, c, truncation_psi=opts.truncation_psi)
-            img = G.synthesis(ws, c, v, noise_mode='const')['image']
-            stats.append(detector(_to_uint8(img)))
+            batch = [x for x in draw_conditioning(opts, rnd) if x is not None]
+            if dist.world() > 1:
+                counts = dist.split_rows(len(batch[0]))
+                lo = sum(counts[:dist.rank()])
+                mine = [x[lo:lo + counts[dist.rank()]] for x in batch]
+                features = torch.as_tensor(detector(_to_uint8(
+                    generate(0, *mine))))
+                stats.append(dist.gather_rows(features, counts).cpu())
+            else:
+                stats.append(detector(_to_uint8(dist.split_over_devices(
+                    generate, batch, devices))))
     return stats

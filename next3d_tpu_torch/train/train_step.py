@@ -25,8 +25,16 @@ parameters ``orth_scale`` / ``orth_shift``, which the reference keeps as
 plain tensors (``NON_TRAINABLE_LEAVES``). The discriminator's
 ``freeze_layers`` leaves its first layers out too (``frozen_paths``).
 
-One device only: the JAX package's data parallelism (``parallel/``,
-shard_map and pmean) waits for a ``torch.distributed`` port.
+Under several ranks (``parallel/dist.py``), each phase all-reduces its
+gradients to their mean between the backward and ``nan_to_num`` in one
+flat bucket, one collective a phase as JAX's one ``pmean`` a phase (JAX
+:5-11, :91; reference training_loop.py:352-356). The phase's stats and
+``w_mean`` ride the same bucket, as JAX pmeans them with the gradients, so
+``Grad/<phase>/norm`` is the norm of the mean gradient and ``w_avg`` stays
+bit-equal across the replicas (the reference lets it drift a rank; JAX
+does not). On a sampled batch, the timer reports the bucket's all-reduce
+as ``Timing/<phase>/allreduce``. Without a process group nothing is
+reduced: the one-card path.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from ..parallel import dist
 
 NON_TRAINABLE_LEAVES = ('w_avg', 'noise_const', 'orth_scale', 'orth_shift',
                         'magnitude_ema')
@@ -93,15 +103,20 @@ def _frozen(others):
             p.requires_grad_(True)
 
 
-def _adam_step(optimizer, loss):
-    """Backward, NaN / inf scrubbing and one Adam step; returns the norm of
-    the gradients before the scrubbing (not finite where one was not)."""
+def _adam_step(optimizer, loss, shared, timer=None, name=''):
+    """Backward, the mean over the ranks of the gradients and of the
+    tensors ``shared`` (the phase's stats and w_mean, in place) in one
+    bucket, NaN / inf scrubbing and one Adam step; returns the norm of the
+    gradients before the scrubbing (not finite where one was not)."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     params = _params(optimizer)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if dist.active():
+        with _phase(timer, f'{name}/allreduce'):
+            dist.all_reduce_mean([p.grad for p in params] + list(shared))
     norm = torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(p.grad) for p in params]))
     for p in params:
@@ -114,6 +129,11 @@ def _detached(stats):
     return {k: v.detach() for k, v in stats.items()}
 
 
+def _phase(timer, name):
+    return timer.phase(name) if timer is not None \
+        else contextlib.nullcontext()
+
+
 class TrainStep:
     """The four phases, the w_avg and G_ema updates (JAX :95-306), for the
     loss's G and D, with their optimizers (``make_optimizer`` over
@@ -124,40 +144,49 @@ class TrainStep:
         self.opt_G = opt_G
         self.opt_D = opt_D
 
-    def gmain(self, batch, generator, sched, nrr):
+    def gmain(self, batch, generator, sched, nrr, timer=None):
         batch, _ = self.loss.flatten_clips(batch)
         with _frozen(_params(self.opt_D)):
             loss, stats, w_mean = self.loss.gmain_loss(batch, generator,
                                                        sched, nrr)
-            stats['Grad/Gmain/norm'] = _adam_step(self.opt_G, loss)
+            stats, w_mean = _detached(stats), w_mean.detach()
+            stats['Grad/Gmain/norm'] = _adam_step(
+                self.opt_G, loss, [*stats.values(), w_mean], timer, 'Gmain')
         self.update_w_avg(w_mean)
-        return _detached(stats)
+        return stats
 
-    def greg(self, batch, generator, gain, sched, draws=None):
+    def greg(self, batch, generator, gain, sched, draws=None, timer=None):
         batch, _ = self.loss.flatten_clips(batch)
         with _frozen(_params(self.opt_D)):
             loss, stats = self.loss.greg_loss(batch, generator, sched, draws)
-            stats['Grad/Greg/norm'] = _adam_step(self.opt_G, loss * gain)
-        return _detached(stats)
+            stats = _detached(stats)
+            stats['Grad/Greg/norm'] = _adam_step(
+                self.opt_G, loss * gain, stats.values(), timer, 'Greg')
+        return stats
 
-    def dmain(self, batch, real_img, generator, sched, nrr):
+    def dmain(self, batch, real_img, generator, sched, nrr, timer=None):
         batch, real_img = self.loss.flatten_clips(batch, real_img)
         real = self.loss.prepare_real(real_img, sched['blur_sigma'], nrr)
         with _frozen(_params(self.opt_G)):
             loss, stats, w_mean = self.loss.dmain_loss(batch, real,
                                                        generator, sched, nrr)
-            stats['Grad/Dmain/norm'] = _adam_step(self.opt_D, loss)
+            stats, w_mean = _detached(stats), w_mean.detach()
+            stats['Grad/Dmain/norm'] = _adam_step(
+                self.opt_D, loss, [*stats.values(), w_mean], timer, 'Dmain')
         # the reference updates G's w_avg in Dmain too (loss.py:264)
         self.update_w_avg(w_mean)
-        return _detached(stats)
+        return stats
 
-    def dreg(self, batch, real_img, gain, generator, sched, nrr):
+    def dreg(self, batch, real_img, gain, generator, sched, nrr,
+             timer=None):
         batch, real_img = self.loss.flatten_clips(batch, real_img)
         real = self.loss.prepare_real(real_img, sched['blur_sigma'], nrr)
         with _frozen(_params(self.opt_G)):
             loss, stats = self.loss.dreg_loss(batch, real, generator, sched)
-            stats['Grad/Dreg/norm'] = _adam_step(self.opt_D, loss * gain)
-        return _detached(stats)
+            stats = _detached(stats)
+            stats['Grad/Dreg/norm'] = _adam_step(
+                self.opt_D, loss * gain, stats.values(), timer, 'Dreg')
+        return stats
 
     @torch.no_grad()
     def update_w_avg(self, w_mean):
@@ -182,24 +211,23 @@ class TrainStep:
         (JAX :256-306). Returns the phases' stats (tensors). ``timer``: an
         optional ``PhaseTimer``, which synchronizes the device around each
         phase."""
-        def phase(name):
-            return timer.phase(name) if timer is not None \
-                else contextlib.nullcontext()
-
         stats = {}
-        with phase('Gmain'):
-            stats.update(self.gmain(batch, generator, sched, nrr))
+        with _phase(timer, 'Gmain'):
+            stats.update(self.gmain(batch, generator, sched, nrr,
+                                    timer=timer))
         if do_greg:
-            with phase('Greg'):
+            with _phase(timer, 'Greg'):
                 stats.update(self.greg(batch, generator,
-                                       float(g_reg_interval), sched))
-        with phase('Dmain'):
-            stats.update(self.dmain(batch, real_img, generator, sched, nrr))
+                                       float(g_reg_interval), sched,
+                                       timer=timer))
+        with _phase(timer, 'Dmain'):
+            stats.update(self.dmain(batch, real_img, generator, sched, nrr,
+                                    timer=timer))
         if do_dreg:
-            with phase('Dreg'):
+            with _phase(timer, 'Dreg'):
                 stats.update(self.dreg(batch, real_img,
                                        float(d_reg_interval), generator,
-                                       sched, nrr))
-        with phase('G_ema'):
+                                       sched, nrr, timer=timer))
+        with _phase(timer, 'G_ema'):
             self.ema_update(G_ema, self.loss.G, ema_beta)
         return stats

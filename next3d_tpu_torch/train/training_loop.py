@@ -1,4 +1,4 @@
-"""The training loop on one device.
+"""The training loop, on one device or as one rank of several.
 
 Counterpart of next3d_tpu/train/training_loop.py (reference:
 training_avatar_texture/training_loop.py:99-534): the phases with lazy
@@ -15,6 +15,24 @@ the dataset's ``InfiniteSampler``. A snapshot keeps all three positions
 the tick under ``extra``) with the networks and both Adam states, so a run
 resumed from it gives, on the CPU, the parameters of an uninterrupted run
 bit for bit.
+
+Several ranks (``parallel/dist.py``; JAX :85, :160-180, :250-270): the
+networks start as rank 0's (a broadcast, after a resume too); gen_z, gen_c
+and gen_v are drawn at the global batch size from the shared streams on
+every rank and each rank takes its block of rows; the real images come
+from the sampler strided by rank, ``batch_size / world`` a rank; the
+phases draw from a generator of the rank's own (seeded from ``seed`` and
+the rank, as JAX folds the rank into its key; the reference seeds ``seed *
+world + rank``), while a world of 1 draws everything from the one
+generator, as above. The phases average their gradients, stats and
+w_mean over the ranks (``train/train_step.py``), so ADA moves ``p`` by
+the mean sign over the global batch. Rank 0 alone writes
+``training_options.json``, ``stats.jsonl``, the TensorBoard events, the
+grids and the snapshots, and prints. At each snapshot every rank's
+networks and Adam states are checked bit-equal to rank 0's
+(``check_replica_consistency``), and the snapshot keeps every rank's
+generator state (``extra['rank_rng_states']``), so a resume on as many
+ranks continues exactly too.
 
 The ADA controller (JAX :61-64, :210-217): the augment pipe's probability
 ``p`` starts at ``augment_p``, rides each batch's schedule as
@@ -48,6 +66,8 @@ import numpy as np
 import torch
 
 from ..data.dataset import make_data_iterator
+from ..parallel import dist
+from ..parallel.stats import StatsCollector
 from .augment import ada_update_p
 from ..utils.checkpoint import (is_snapshot, load_optimizer_state,
                                 load_snapshot, optimizer_state, save_snapshot)
@@ -89,27 +109,11 @@ class PhaseTimer:
         self._counts.clear()
 
 
-class StatsCollector:
-    """Means of the reported scalars since the last reset."""
-
-    def __init__(self):
-        self._sums = defaultdict(float)
-        self._counts = defaultdict(int)
-
-    def report_dict(self, stats):
-        for k, v in stats.items():
-            self._sums[k] += float(v)
-            self._counts[k] += 1
-
-    def names(self):
-        return sorted(self._sums)
-
-    def mean(self, name):
-        return self._sums[name] / self._counts[name]
-
-    def reset(self):
-        self._sums.clear()
-        self._counts.clear()
+def rank_seed(seed, rank):
+    """The seed of rank ``rank``'s phase generator: ``seed`` with the rank
+    folded in (numpy's SeedSequence), apart from the shared stream's."""
+    return int(np.random.SeedSequence(seed, spawn_key=(rank,))
+               .generate_state(1)[0])
 
 
 def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
@@ -123,9 +127,13 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
     """Train ``G`` and ``D`` (the loss's, on ``device``) with ``step``'s
     optimizers on batches of ``dataset`` until ``total_kimg`` thousand
     images. Returns {'cur_nimg', 'ticks': the stats.jsonl records}."""
-    os.makedirs(run_dir, exist_ok=True)
+    main, world = dist.is_main(), dist.world()
+    if main:
+        os.makedirs(run_dir, exist_ok=True)
     device = torch.device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
+    draws = generator if world == 1 else torch.Generator(
+        device=device).manual_seed(rank_seed(seed, dist.rank()))
     cond_rnd = np.random.RandomState(seed * 7919 + 1)
     named_G = dict(G.named_parameters())
     named_D = dict(D.named_parameters())
@@ -143,17 +151,24 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
             cond_rnd.set_state(resumed['cond_rnd_state'])
         ada_p = resumed.get('ada_p', ada_p)
         ada_signs = resumed.get('ada_signs', ada_signs)
-    data = make_data_iterator(dataset, batch_size, seed=seed,
-                              prefetch=workers, start=batch_idx * batch_size)
+        states = resumed.get('rank_rng_states', [])
+        if world > 1 and len(states) == world:
+            draws.set_state(states[dist.rank()])
+    dist.broadcast_module(G, D, G_ema, step.opt_G, step.opt_D)
+    local = batch_size // world
+    data = make_data_iterator(dataset, local, rank=dist.rank(),
+                              num_replicas=world, seed=seed,
+                              prefetch=workers, start=batch_idx * local)
 
     stats = StatsCollector()
     timer = PhaseTimer(device)
     records = []
-    if config is not None:
+    if config is not None and main:
         with open(os.path.join(run_dir, 'training_options.json'), 'wt') as f:
             json.dump(config, f, indent=2, default=str)
-    stats_jsonl = open(os.path.join(run_dir, 'stats.jsonl'), 'at')
-    tb_writer = SummaryWriter(run_dir)
+    stats_jsonl = open(os.path.join(run_dir, 'stats.jsonl'), 'at') \
+        if main else None
+    tb_writer = SummaryWriter(run_dir) if main else None
     tick_start_nimg = cur_nimg
     tick_start_time = start_time = time.time()
     try:
@@ -161,14 +176,14 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
             t_fetch = time.perf_counter()
             host = next(data)
             fetch = time.perf_counter() - t_fetch
-            real_img = torch.from_numpy(host['image']).to(device)
+            real_img = dist.local_batch(host['image'], device)
             gen_z = torch.randn((batch_size, G.z_dim), generator=generator,
                                 device=device)
             gen_c, gen_v = dataset.sample_conditioning(cond_rnd, batch_size)
-            batch = {'gen_z': gen_z,
-                     'gen_c': torch.from_numpy(gen_c).to(device),
-                     'gen_v': torch.from_numpy(gen_v).to(device),
-                     'real_c': torch.from_numpy(host['c']).to(device)}
+            batch = {'gen_z': dist.shard_batch(gen_z),
+                     'gen_c': dist.shard_batch(gen_c, device),
+                     'gen_v': dist.shard_batch(gen_v, device),
+                     'real_c': dist.local_batch(host['c'], device)}
             sched, nrr = loss_obj.schedules(cur_nimg)
             sched['aug_p'] = ada_p
             do_greg = g_reg_interval is not None and \
@@ -183,7 +198,7 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
             timed = timing_sample_every and \
                 batch_idx % timing_sample_every == 0
             step_stats = step.run_phases(
-                G_ema, batch, real_img, generator, sched, nrr,
+                G_ema, batch, real_img, draws, sched, nrr,
                 do_greg=do_greg, do_dreg=do_dreg,
                 g_reg_interval=g_reg_interval, d_reg_interval=d_reg_interval,
                 ema_beta=ema_beta, timer=timer if timed else None)
@@ -215,7 +230,8 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
             for name in ('Loss/G/loss', 'Loss/D/loss'):
                 if name in stats.names():
                     line += f"{name.split('/')[-2]}loss {stats.mean(name):<6.3f} "
-            print(line, flush=True)
+            if main:
+                print(line, flush=True)
             record = {'tick': tick, 'kimg': cur_nimg / 1e3,
                       'images_per_second': (cur_nimg - tick_start_nimg)
                       / max(tick_time, 1e-8),
@@ -225,36 +241,48 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
                 record['Resources/peak_device_mem_gb'] = \
                     torch.cuda.max_memory_allocated(device) / 2 ** 30
             records.append(record)
-            stats_jsonl.write(json.dumps(record) + '\n')
-            stats_jsonl.flush()
-            for k, val in record.items():
-                if isinstance(val, (int, float)):
-                    tb_writer.add_scalar(k, val,
-                                         global_step=int(cur_nimg // 1e3))
-            tb_writer.flush()
+            if main:
+                stats_jsonl.write(json.dumps(record) + '\n')
+                stats_jsonl.flush()
+                for k, val in record.items():
+                    if isinstance(val, (int, float)):
+                        tb_writer.add_scalar(k, val,
+                                             global_step=int(cur_nimg // 1e3))
+                tb_writer.flush()
             stats.reset()
             timer.reset()
 
-            if image_snapshot_ticks is not None and snapshot_vis_batch \
-                    is not None and (tick % image_snapshot_ticks == 0 or done):
+            if main and image_snapshot_ticks is not None and \
+                    snapshot_vis_batch is not None and \
+                    (tick % image_snapshot_ticks == 0 or done):
                 _save_fakes_grid(G_ema, snapshot_vis_batch, run_dir, cur_nimg,
                                  device)
             if snapshot_ticks is not None and tick > 0 and \
                     (tick % snapshot_ticks == 0 or done):
+                dist.check_replica_consistency(
+                    {'G': G, 'D': D, 'G_ema': G_ema},
+                    {'opt_G': step.opt_G, 'opt_D': step.opt_D})
+                extra = {'batch_idx': batch_idx, 'tick': tick + 1,
+                         'cond_rnd_state': cond_rnd.get_state(),
+                         'ada_p': ada_p, 'ada_signs': list(ada_signs)}
+                if world > 1:
+                    extra['rank_rng_states'] = [
+                        s.numpy() for s in
+                        dist.gather_rows(draws.get_state()[None])]
                 snap_path = os.path.join(
                     run_dir, f'network-snapshot-{cur_nimg // 1000:06d}.pkl')
-                save_snapshot(
-                    snap_path,
-                    params_G=state_dict_to_params(G.state_dict()),
-                    params_D=state_dict_to_params(D.state_dict()),
-                    params_G_ema=state_dict_to_params(G_ema.state_dict()),
-                    opt_state_G=optimizer_state(step.opt_G, named_G),
-                    opt_state_D=optimizer_state(step.opt_D, named_D),
-                    cur_nimg=cur_nimg, rng_key=generator.get_state().numpy(),
-                    config=config,
-                    extra={'batch_idx': batch_idx, 'tick': tick + 1,
-                           'cond_rnd_state': cond_rnd.get_state(),
-                           'ada_p': ada_p, 'ada_signs': list(ada_signs)})
+                if main:
+                    save_snapshot(
+                        snap_path,
+                        params_G=state_dict_to_params(G.state_dict()),
+                        params_D=state_dict_to_params(D.state_dict()),
+                        params_G_ema=state_dict_to_params(
+                            G_ema.state_dict()),
+                        opt_state_G=optimizer_state(step.opt_G, named_G),
+                        opt_state_D=optimizer_state(step.opt_D, named_D),
+                        cur_nimg=cur_nimg,
+                        rng_key=generator.get_state().numpy(),
+                        config=config, extra=extra)
                 if metrics:
                     _eval_metrics(G_ema, dataset, metrics, run_dir,
                                   snap_path, cur_nimg, device)
@@ -264,8 +292,9 @@ def training_loop(G, D, G_ema, loss_obj, step, dataset, run_dir, device,
             if done:
                 break
     finally:
-        stats_jsonl.close()
-        tb_writer.close()
+        if main:
+            stats_jsonl.close()
+            tb_writer.close()
         if hasattr(data, 'close'):
             data.close()
     return {'cur_nimg': cur_nimg, 'ticks': records, 'ada_p': ada_p}
@@ -275,7 +304,8 @@ def load_resume(path, G, D, G_ema, step):
     """Load the checkpoint at ``path`` for a resume into the networks and
     ``step``'s optimizers; returns the loop's state that it holds (the
     keys ``cur_nimg``, ``ada_p``, ``batch_idx``, ``tick``, ``rng_state``,
-    ``cond_rnd_state``, ``ada_signs`` where it has them). Three kinds of
+    ``cond_rnd_state``, ``ada_signs`` and ``rank_rng_states`` where it has
+    them). Three kinds of
     file, as the JAX loop (JAX :93-120):
 
     - a format-1 snapshot of the port's loop: everything, so that the run
@@ -330,7 +360,9 @@ def load_resume(path, G, D, G_ema, step):
             batch_idx=int(extra['batch_idx']), tick=int(extra['tick']),
             rng_state=torch.from_numpy(np.array(snap['rng_key'])),
             cond_rnd_state=extra['cond_rnd_state'],
-            ada_signs=list(extra.get('ada_signs', [])))
+            ada_signs=list(extra.get('ada_signs', [])),
+            rank_rng_states=[torch.from_numpy(np.array(s)) for s in
+                             extra.get('rank_rng_states', [])])
     return out
 
 
@@ -340,19 +372,25 @@ def _eval_metrics(G_ema, dataset, metrics, run_dir, snapshot_path,
     """In-training metrics on ``G_ema`` (JAX :318-338, reference
     training_loop.py:479-492): each record goes to its jsonl file in
     ``run_dir``, the dataset's statistics are cached there, and a failure
-    (no local Inception pickle, say) is printed and never stops training."""
+    (no local Inception pickle, say) is printed and never stops training.
+    Every rank runs each metric (the generator feature loop splits its
+    batches over the ranks, ``metrics/metric_utils.py``); rank 0 alone
+    writes the record and the cache and prints."""
     from ..metrics import metric_main
+    main = dist.is_main()
     for name in metrics:
         try:
             record = metric_main.calc_metric(
-                name, run_dir=run_dir, generator=G_ema, dataset=dataset,
-                cache_dir=run_dir, device=device,
-                snapshot_pkl=os.path.basename(snapshot_path),
+                name, run_dir=run_dir if main else None, generator=G_ema,
+                dataset=dataset, cache_dir=run_dir if main else None,
+                device=device, snapshot_pkl=os.path.basename(snapshot_path),
                 cur_nimg=cur_nimg)
-            print(f"metric {name}: {record['results']}", flush=True)
+            if main:
+                print(f"metric {name}: {record['results']}", flush=True)
         except Exception as e:  # a metric never stops training
             traceback.print_exc()
-            print(f'metric {name} FAILED: {e!r}', flush=True)
+            if main:
+                print(f'metric {name} FAILED: {e!r}', flush=True)
 
 
 def _save_fakes_grid(G_ema, vis, run_dir, cur_nimg, device):

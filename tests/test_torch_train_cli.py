@@ -8,7 +8,8 @@ texture variant with ADA, a fixed augmentation probability and video clips,
 each run and resumed; in-training metrics after each snapshot, a failed
 one printed while training goes on; the command's options against the JAX
 click command's, and what each configuration builds against what the JAX
-command builds; what is not ported raises."""
+command builds; ``--gpus`` that no machine here can serve raises. (Two
+ranks: tests/test_torch_train_dist.py.)"""
 
 import json
 import os
@@ -397,10 +398,24 @@ def test_failed_metric_does_not_stop_training(files, whole):
     assert [r['tick'] for r in result['ticks']] == [0, 1, 2]
 
 
-@pytest.mark.parametrize('extra', [['--gpus', '2']])
-def test_unported_options_raise(files, extra):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        cli.run(_argv(files, 'unported', 0.001, *extra))
+def test_more_gpus_than_visible_cards_raise(files):
+    """``--gpus 2`` on ``--device cuda`` asks for more cards than this
+    machine shows (none here): it raises, naming both counts, and trains
+    on no other device."""
+    with pytest.raises(ValueError, match=rf'--gpus 2 .* the '
+                       rf'{torch.cuda.device_count()} visible'):
+        cli.run(_argv(files, 'gpus', 0.001, '--device', 'cuda', '--gpus',
+                      '2'))
+    assert not os.path.exists(files[0] / 'gpus')
+
+
+def test_batch_that_does_not_split_over_gpus_raises(files):
+    """A global batch that the ranks cannot share evenly raises, as the
+    JAX command asserts (JAX cli/train.py:297-298)."""
+    with pytest.raises(ValueError, match='--batch 3 does not split over '
+                       '--gpus 2'):
+        cli.run(_argv(files, 'split', 0.001, '--batch', '3', '--gpus', '2'))
+    assert not os.path.exists(files[0] / 'split')
 
 
 def test_optax_state_does_not_load():

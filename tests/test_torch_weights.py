@@ -93,7 +93,7 @@ def test_obj_io_matches_jax_package(tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port (its CLIs and its training path included,
     the augment pipe and the video dataset too, the checkpoint readers,
-    the metrics and the bench),
+    the metrics, the bench and the data parallelism),
     and a generator built from it, pull in neither JAX nor any module of
     the JAX package, nor optax, click or PIL, which the card machine
     lacks."""
@@ -127,7 +127,8 @@ def test_port_imports_no_jax():
         "'next3d_tpu_torch.metrics.equivariance', "
         "'next3d_tpu_torch.metrics.metric_main', "
         "'next3d_tpu_torch.cli.calc_metrics', "
-        "'next3d_tpu_torch.bench'} "
+        "'next3d_tpu_torch.bench', 'next3d_tpu_torch.parallel.dist', "
+        "'next3d_tpu_torch.parallel.stats'} "
         "<= set(names), names\n"
         "from next3d_tpu_torch.models import (triplane_next3d,"
         " triplane_texture)\n"
