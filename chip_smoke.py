@@ -210,6 +210,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      which both ranks' G, D and G_ema are bit-equal; the all-reduce ms;
      (c) ``train --gpus N`` for one card more than visible raises, naming
      both counts. It ends with a {"parallel": ...} line.
+ 20. the EG3D and StyleGAN3 families (check_model_families): (a)
+     EG3DTriPlaneGenerator at the FFHQ 512^2 config (8XDC, 48+48 samples,
+     sr_num_fp16_res 4, fp32): K4's 2 launches a forward, image /
+     image_raw / image_depth against the same forward on K4's plain
+     version (EG3D_PLAIN_MAX_ABS, EG3D_PLAIN_MEAN_ABS), img/s at batch 1
+     and 4, peak memory; (b) SG3Generator, StyleGAN3-T at 256^2
+     (SG3_T_256), fp32: img/s at batch 1 and 4, peak memory, and the
+     device ms of its filtered_lrelu calls in one batch-4 forward against
+     the whole forward's; (c) eqt50k_int, eqt50k_frac and eqr50k through
+     the metric registry on (b)'s G, cut to EQ_SAMPLES samples at batch
+     EQ_BATCH: finite PSNRs, seconds; (d) sample_cross_section at 256^2 on
+     phase 6's flagship, batch 1: ms, K1's and K4's launches, sigma against
+     the plain K1 and K4 (CROSS_SECTION_MAX_ABS); (e) ``train --resolution
+     256`` (SuperresolutionHybrid4X) on phase 13's images resized to
+     256^2, 2 batches of 4 through train_run. It ends with a
+     {"model_families": ...} line.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -260,12 +276,13 @@ The head is the mesh that NEXT3D_TOPOLOGY names (an .obj with UVs and a
 the in-repo synthetic head. The run uses no JAX. It ends with a
 {"train": ...} line, a {"train_variants": ...} line, a {"bf16": ...}
 line, a {"checkpoints": ...} line, a {"metrics": ...} line, a
-{"bench": ...} line, a {"parallel": ...} line, the card line, a JSON
-object with one entry per kernel (K1, K2, K4 and K4's backward with their
-training launches: phase 13's, and for K2 phase 15's texture run; K1, K4
-and K4's backward with phase 16's and phase 17's launches a command and
-phase 19 (a)'s; K4's bf16 backward with phase 18's bf16 train bench) and
-the result line {"ok": true, "device": {...}}.
+{"bench": ...} line, a {"parallel": ...} line, a {"model_families": ...}
+line, the card line, a JSON object with one entry per kernel (K1, K2, K4
+and K4's backward with their training launches: phase 13's, and for K2
+phase 15's texture run; K1, K4 and K4's backward with phase 16's and phase
+17's launches a command, phase 19 (a)'s and phase 20's by path; K4's bf16
+backward with phase 18's bf16 train bench) and the result line
+{"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -2987,6 +3004,301 @@ def check_gpus_raise(files):
     return message
 
 
+# phase 20 (a): EG3D's 512^2 forward on K4 against the same forward on K4's
+# plain version on the card, in units of the output's largest magnitude
+# (max(1, scale)): K4 and its plain version differ by float32 roundoff
+# (within 1e-5 at phase 4), which the decoder, the importance draw and the
+# SR convolutions carry through
+EG3D_PLAIN_MAX_ABS = 2e-3
+EG3D_PLAIN_MEAN_ABS = 1e-4
+# phase 20 (d): the cross-section's sigma on K1 and K4 against their plain
+# versions (K1 bit-equal, K4 within 1e-5), in units of max(1, scale)
+CROSS_SECTION_MAX_ABS = 1e-4
+# phase 20 (b): StyleGAN3-T at 256^2, the SG3SynthesisNetwork defaults
+# (the StyleGAN3 repository's train.py --cfg=stylegan3-t)
+SG3_T_256 = dict(z_dim=512, c_dim=0, w_dim=512, img_resolution=256,
+                 img_channels=3, channel_base=32768, channel_max=512,
+                 num_layers=14, margin_size=10, num_fp16_res=4)
+# phase 20 (c): the equivariance metrics cut to this many samples at this
+# batch (the registry's runs take 50,000 at batch 4)
+EQ_SAMPLES, EQ_BATCH = 64, 8
+
+
+class plain_kernels:
+    """Route K1 and K4 to their plain versions on the card for the
+    duration (the rasterizer's and the renderer's names of the wrappers)."""
+
+    def __enter__(self):
+        from next3d_tpu_torch.ops.raster import rasterize_binned_uv_plain
+        from next3d_tpu_torch.ops.triplane import triplane_sample_plain
+        from next3d_tpu_torch.render import rasterizer, renderer
+        self.saved = [(rasterizer, 'rasterize_binned_uv',
+                       rasterizer.rasterize_binned_uv),
+                      (renderer, 'triplane_sample', renderer.triplane_sample)]
+        rasterizer.rasterize_binned_uv = rasterize_binned_uv_plain
+        renderer.triplane_sample = triplane_sample_plain
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def gaps(got, want):
+    """max-abs and mean-abs of got - want, and want's largest magnitude."""
+    d = (got.float() - want.float()).abs()
+    return dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                scale=float(want.abs().max()))
+
+
+def check_eg3d(z, c, device, card, kernels):
+    """Phase 20 (a): EG3DTriPlaneGenerator at the FFHQ 512^2 config (8XDC,
+    48+48 samples, sr_num_fp16_res 4, fp32), random weights of SEED: K4's
+    launches a forward, image / image_raw / image_depth against the same
+    forward on K4's plain version (deterministic cuDNN), img/s at batch 1
+    and 4, peak memory."""
+    from next3d_tpu_torch.models.triplane_eg3d import EG3DTriPlaneGenerator
+
+    t0 = time.time()
+    E = EG3DTriPlaneGenerator(**G_KWARGS,
+                              generator=torch.Generator().manual_seed(SEED))
+    E = E.to(device).eval()
+    build_s = time.time() - t0
+
+    def forward(n):
+        return E(z[n], c[n], truncation_psi=0.7, truncation_cutoff=14,
+                 noise_mode='const')
+
+    torch.cuda.reset_peak_memory_stats(device)
+    out, counts = counted(lambda: forward(1), kernels)
+    check_outputs(out, 1)
+    if counts['K4'] != 2 or counts['K1'] or counts['K4bf16']:
+        raise RuntimeError(f'EG3D forward: K4 launched {counts["K4"]} times '
+                           f'(2 expected), others {counts}')
+    torch.backends.cudnn.deterministic = True
+    out, counts4 = counted(lambda: forward(4), kernels)
+    spread = gaps(forward(4)['image'], out['image'])['max_abs']
+    with plain_kernels():
+        plain, plain_counts = counted(lambda: forward(4), kernels)
+    torch.backends.cudnn.deterministic = False
+    if plain_counts['K4']:
+        raise RuntimeError('the plain forward launched K4')
+    check_outputs(out, 4)
+    vs_plain = {k: gaps(out[k], plain[k]) for k in out}
+    bad = [k for k, g in vs_plain.items()
+           if not (g['max_abs'] <= EG3D_PLAIN_MAX_ABS * max(1, g['scale'])
+                   and g['mean_abs'] <= EG3D_PLAIN_MEAN_ABS
+                   * max(1, g['scale']))]
+    rates = throughput('EG3D 512^2', forward, card)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    log(f'phase 20 (a) EG3D {sum(p.numel() for p in E.parameters())} '
+        f'parameters, built in {build_s:.1f} s; K4 launches a forward at '
+        f'batch 1 {counts["K4"]}, at batch 4 {counts4["K4"]}; against K4\'s '
+        f'plain version at batch 4 (deterministic cuDNN, run-to-run max-abs '
+        f'{spread:.3g}; bounds max-abs {EG3D_PLAIN_MAX_ABS} and mean-abs '
+        f'{EG3D_PLAIN_MEAN_ABS} times max(1, scale)): '
+        + '; '.join(f'{k} max-abs {g["max_abs"]:.3g} mean-abs '
+                    f'{g["mean_abs"]:.3g} scale {g["scale"]:.3g}'
+                    for k, g in vs_plain.items())
+        + f'; peak device memory {peak:.2f} GiB; on {card}')
+    if bad:
+        raise RuntimeError(f'EG3D on K4 disagrees with its plain version: '
+                           f'{bad}')
+    del E
+    return dict(images_per_second=rates, peak_device_mem_gb=peak,
+                k4_launches_a_forward=counts['K4'], vs_plain=vs_plain,
+                run_to_run_max_abs=spread, build_s=build_s)
+
+
+def check_sg3(device, card):
+    """Phase 20 (b): SG3Generator (StyleGAN3-T) at 256^2, fp32, random
+    weights of SEED: finite (N, 3, 256, 256) images, img/s at batch 1 and
+    4, peak memory, and the device ms of the forward's filtered_lrelu calls
+    (each replayed alone on its own inputs) against the whole forward's.
+    Returns the generator and the phase's summary."""
+    from next3d_tpu_torch.nn import stylegan3
+
+    t0 = time.time()
+    S = stylegan3.SG3Generator(**SG3_T_256,
+                               generator=torch.Generator().manual_seed(SEED))
+    S = S.to(device).eval()
+    build_s = time.time() - t0
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    zs = {n: torch.randn(n, 512, generator=g, device=device) for n in (1, 4)}
+
+    def forward(n):
+        return S(zs[n])
+
+    torch.cuda.reset_peak_memory_stats(device)
+    for n in (1, 4):
+        img = forward(n)
+        if tuple(img.shape) != (n, 3, 256, 256) or \
+                not bool(torch.isfinite(img).all()):
+            raise RuntimeError(f'SG3 batch {n}: shape {tuple(img.shape)} '
+                               f'or non-finite')
+    rates = throughput('SG3-T 256^2', forward, card)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+    calls = []
+    flrelu = stylegan3.filtered_lrelu
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return flrelu(*args, **kwargs)
+
+    stylegan3.filtered_lrelu = record
+    try:
+        forward(4)
+    finally:
+        stylegan3.filtered_lrelu = flrelu
+    share = {}
+    for n in (4,):
+        whole = device_ms(lambda: forward(n), reps=5)
+        part = device_ms(lambda: [flrelu(*a, **k) for a, k in calls], reps=5)
+        share[n] = dict(forward_device_ms=whole,
+                        filtered_lrelu_device_ms=part,
+                        filtered_lrelu_calls=len(calls),
+                        share=part / whole if whole > 0 else None)
+    log(f'phase 20 (b) SG3-T 256^2: {sum(p.numel() for p in S.parameters())} '
+        f'parameters, {len(S.synthesis.layer_names)} layers, built in '
+        f'{build_s:.1f} s; peak device memory {peak:.2f} GiB; batch 4: '
+        f'forward {share[4]["forward_device_ms"]:.3f} ms of device time, its '
+        f'{len(calls)} filtered_lrelu calls alone '
+        f'{share[4]["filtered_lrelu_device_ms"]:.3f} ms '
+        f'({100 * share[4]["share"]:.1f}%); on {card}')
+    return S, dict(images_per_second=rates, peak_device_mem_gb=peak,
+                   build_s=build_s, filtered_lrelu=share)
+
+
+def check_equivariance(S, device, card):
+    """Phase 20 (c): eqt50k_int, eqt50k_frac and eqr50k through the port's
+    metric registry on ``S``, cut to EQ_SAMPLES samples at batch EQ_BATCH:
+    finite PSNRs (random weights), the identity transform restored."""
+    from next3d_tpu_torch.metrics import equivariance, metric_main
+
+    compute = equivariance.compute_equivariance_metrics
+
+    def cut(opts, num_samples, batch_size, **flags):
+        return compute(opts, num_samples=EQ_SAMPLES, batch_size=EQ_BATCH,
+                       **flags)
+
+    out = {}
+    equivariance.compute_equivariance_metrics = cut
+    try:
+        for name in ('eqt50k_int', 'eqt50k_frac', 'eqr50k'):
+            t0 = time.time()
+            record = metric_main.calc_metric(name, generator=S,
+                                             device=device)
+            torch.cuda.synchronize()
+            out[name] = dict(psnr_db=record['results'][name],
+                             seconds=time.time() - t0)
+    finally:
+        equivariance.compute_equivariance_metrics = compute
+    log(f'phase 20 (c) equivariance on SG3-T 256^2, {EQ_SAMPLES} samples at '
+        f'batch {EQ_BATCH} (random weights): '
+        + '; '.join(f'{k} {v["psnr_db"]:.3f} dB in {v["seconds"]:.2f} s'
+                    for k, v in out.items()) + f'; on {card}')
+    bad = [k for k, v in out.items() if not math.isfinite(v['psnr_db'])]
+    if bad or not torch.equal(S.synthesis.input.transform,
+                              torch.eye(3, device=device)):
+        raise RuntimeError(f'equivariance: not finite {bad}, or the '
+                           f'transform was not restored')
+    return out
+
+
+def check_cross_section(G, z, c, v, card, kernels):
+    """Phase 20 (d): sample_cross_section at 256^2 on the flagship, batch
+    1: its ms, K1's and K4's launches, sigma against the same call on the
+    plain K1 and K4."""
+    from next3d_tpu_torch.render.crosssection import sample_cross_section
+
+    ws = G.mapping(z, c, truncation_psi=0.7, truncation_cutoff=14)
+
+    def section():
+        return sample_cross_section(G, ws, v, resolution=256)
+
+    sigma, counts = counted(section, kernels)
+    with plain_kernels():
+        plain, plain_counts = counted(section, kernels)
+    if plain_counts['K1'] or plain_counts['K4']:
+        raise RuntimeError('the plain cross-section launched a kernel')
+    ms = median_ms(section)
+    g = gaps(sigma, plain)
+    log(f'phase 20 (d) cross-section 256^2 on the flagship, batch 1: '
+        f'{ms:.3f} ms (median of 5); launches {counts}; sigma vs the plain '
+        f'K1 and K4: max-abs {g["max_abs"]:.3g} (bound '
+        f'{CROSS_SECTION_MAX_ABS} x max(1, {g["scale"]:.3g})), mean-abs '
+        f'{g["mean_abs"]:.3g}; on {card}')
+    if tuple(sigma.shape) != (256, 256) or not bool(
+            torch.isfinite(sigma).all()) or counts['K1'] <= 0 \
+            or counts['K4'] <= 0 or not g['max_abs'] <= \
+            CROSS_SECTION_MAX_ABS * max(1, g['scale']):
+        raise RuntimeError('the cross-section failed')
+    return dict(ms=ms, launches={k: counts[k] for k in ('K1', 'K4')},
+                vs_plain=g)
+
+
+def check_train_256(files, mesh, device, card, kernels):
+    """Phase 20 (e): ``train --resolution 256`` (SuperresolutionHybrid4X)
+    on phase 13's dataset resized to 256^2 (2x2 means), 2 batches of 4,
+    through train_run."""
+    import numpy as np
+    from next3d_tpu_torch.utils.synthetic_head import save_dataset
+
+    images = [np.asarray(im, np.float32).reshape(256, 2, 256, 2, 3)
+              .mean(axis=(1, 3)).round().astype(np.uint8)
+              for im in files['images']]
+    data = save_dataset(os.path.join(files['root'], 'data256'), images,
+                        files['v'].cpu().numpy(), files['labels'], mesh)
+    argv = ['train', '--outdir', os.path.join(files['root'], 'run256'),
+            '--data', data, '--batch', '4', '--kimg', '0.008', '--tick',
+            '0.004', '--snap', '100', '--resolution', '256',
+            '--topology-path', files['obj'], '--device', str(device),
+            '--timing-every', '1']
+    summary, result = train_run(
+        'phase 20 (e) train --resolution 256 (SR 4X), 2 batches of 4',
+        argv, kernels, card, expect=('K1', 'K4', 'K4b'))
+    sr = type(result['G'].superresolution).__name__
+    if sr != 'SuperresolutionHybrid4X' or result['cur_nimg'] != 8:
+        raise RuntimeError(f'train --resolution 256: SR {sr}, cur_nimg '
+                           f'{result["cur_nimg"]}')
+    del result
+    return summary
+
+
+def check_model_families(G, files, mesh, inputs, device, card, kernels):
+    """Phase 20: the EG3D and StyleGAN3 families, the cross-section and
+    ``train --resolution 256`` (check_eg3d, check_sg3, check_equivariance,
+    check_cross_section, check_train_256). Returns the phase's K1, K4 and
+    K4 backward launches by path and its summary."""
+    z, c, v = inputs
+    t0 = time.time()
+    out = dict(card=card)
+    with torch.no_grad():
+        out['eg3d'] = check_eg3d(z, c, device, card, kernels)
+        torch.cuda.empty_cache()
+        S, out['sg3_t'] = check_sg3(device, card)
+        out['equivariance'] = check_equivariance(S, device, card)
+        del S
+        torch.cuda.empty_cache()
+        out['cross_section'] = check_cross_section(G, z[1], c[1], v[1], card,
+                                                   kernels)
+    out['train_256'] = check_train_256(files, mesh, device, card, kernels)
+    out['wall_s'] = time.time() - t0
+    launches = {
+        'K1': {'cross_section': out['cross_section']['launches']['K1'],
+               'train --resolution 256':
+                   out['train_256']['launches']['K1']},
+        'K4': {'eg3d forward': out['eg3d']['k4_launches_a_forward'],
+               'cross_section': out['cross_section']['launches']['K4'],
+               'train --resolution 256':
+                   out['train_256']['launches']['K4']},
+        'K4b': {'train --resolution 256':
+                    out['train_256']['launches']['K4b']}}
+    log(f'phase 20: {out["wall_s"]:.1f} s')
+    return launches, out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
@@ -3219,6 +3531,10 @@ def main():
             files, mesh, device, card, kernels, train)
         parallel['wall_s'] = time.time() - t0
         log(f'phase 19: {parallel["wall_s"]:.1f} s')
+
+        torch.cuda.empty_cache()
+        family_launches, families = check_model_families(
+            G, files, mesh, (z, c, v), device, card, kernels)
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
 
@@ -3267,6 +3583,8 @@ def main():
                                          metric_launches.items() if k in n}
             # phase 19 (a): train through the rank entry over NCCL
             entry['parallel_launches'] = parallel_launches[k]
+            # phase 20: EG3D's forward, the cross-section, train at 256^2
+            entry['model_family_launches'] = family_launches[k]
     log(json.dumps({'train': train}))
     log(json.dumps({'train_variants': variants}))
     log(json.dumps({'bf16': bf16}))
@@ -3274,6 +3592,7 @@ def main():
     log(json.dumps({'metrics': metrics}))
     log(json.dumps({'bench': phase18}))
     log(json.dumps({'parallel': parallel}))
+    log(json.dumps({'model_families': families}))
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

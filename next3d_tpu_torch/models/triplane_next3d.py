@@ -49,6 +49,7 @@ from ..render.rasterizer import (rasterize_uv_with_alpha,
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer, layout_for
 from ..utils.obj_io import ObjMesh, load_obj
+from ..utils.registry import register
 from .osg_decoder import OSGDecoder
 
 RENDERING_VIEWS = ((0, 0, 0), (0, 90, 0), (0, -90, 0), (90, 0, 0))
@@ -420,3 +421,10 @@ class TriPlaneGenerator(nn.Module):
         return self.synthesis(
             ws, c, v, neural_rendering_resolution=neural_rendering_resolution,
             **synthesis_kwargs)
+
+
+@register('TriPlaneGenerator')
+@register('next3d')
+def build_generator(device='cuda', **kwargs):
+    """The registry's constructor: a TriPlaneGenerator on ``device``."""
+    return TriPlaneGenerator(**kwargs).to(device)

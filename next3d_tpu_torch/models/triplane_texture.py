@@ -20,6 +20,7 @@ import torch
 from ..ops.grid_sample import grid_sample_2d
 from ..render.mesh import angle2matrix, batch_orth_proj
 from ..render.rasterizer import rasterize_with_attributes
+from ..utils.registry import register
 from .triplane_next3d import N_FLAME_VERTS, TriPlaneGenerator
 
 ORTH_VIEWS = ((0, 0, 180), (90, 0, 180), (0, 90, 180), (0, -90, 180))
@@ -105,3 +106,11 @@ class TriPlaneTextureGenerator(TriPlaneGenerator):
         renderings = renderings.reshape(static_plane.shape)
         alphas = alphas[:, :, None]                     # (N, 3, 1, R, R)
         return renderings * alphas + static_plane * (1 - alphas)
+
+
+@register('TriPlaneTextureGenerator')
+@register('avatar_texture')
+def build_texture_generator(device='cuda', **kwargs):
+    """The registry's constructor: a TriPlaneTextureGenerator on
+    ``device``."""
+    return TriPlaneTextureGenerator(**kwargs).to(device)

@@ -35,7 +35,7 @@ def resolve_impl(impl):
     """The port's rasterizer for a JAX ``rasterizer_impl`` name."""
     if impl in ('tiled', 'scatter'):
         raise ValueError(f"rasterizer impl {impl!r} is not ported (ROADMAP.md "
-                         f"Queue 1 item 5, the 'tiled' and 'scatter' "
+                         f"Queue 1 item 3, the 'tiled' and 'scatter' "
                          f"rasterizers); use one of {IMPLS}")
     if impl not in IMPLS:
         raise ValueError(f'unknown rasterizer impl {impl!r}; use one of '

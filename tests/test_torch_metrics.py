@@ -14,9 +14,9 @@ rasterizing with K1 in interpret mode): the port's draws equal the JAX
 loop's, and its images meet the fp32 gate of ROADMAP.md (max-abs 2e-3,
 mean-abs 1e-4). The equivariance operators are held to the JAX package's,
 and compute_equivariance_metrics raises JAX's ValueError for the port's
-generators. The ``calc-metrics`` command takes the JAX command's options,
-and runs end to end on the CPU with a scripted Inception detector of
-seeded weights."""
+generators without a user transform. The ``calc-metrics`` command takes
+the JAX command's options, and runs end to end on the CPU with a scripted
+Inception detector of seeded weights."""
 
 import dataclasses
 import json
@@ -400,9 +400,11 @@ def test_equivariance_bandlimit_filter_matches_jax():
 
 
 def test_equivariance_refuses_the_port_generators(generators):
-    """Neither generator of the port has a user transform:
-    compute_equivariance_metrics raises the JAX package's ValueError,
-    through the registry too."""
+    """None of the flagship, the texture variant and EG3D has a user
+    transform: compute_equivariance_metrics raises the JAX package's
+    ValueError, through the registry too (the port's SG3Generator runs it:
+    tests/test_torch_sg3.py)."""
+    from next3d_tpu_torch.models.triplane_eg3d import EG3DTriPlaneGenerator
     from next3d_tpu_torch.models.triplane_texture import \
         TriPlaneTextureGenerator
     port, _, _ = generators
@@ -412,7 +414,12 @@ def test_equivariance_refuses_the_port_generators(generators):
         img_channels=3, channel_base=64, channel_max=4, plane_resolution=64,
         rendering_kwargs={'superresolution_module':
                           'SuperresolutionHybrid2X'})
-    for G in (port, texture):
+    eg3d = EG3DTriPlaneGenerator(
+        z_dim=8, c_dim=25, w_dim=512, img_resolution=128, img_channels=3,
+        channel_base=1024, channel_max=4,
+        rendering_kwargs={'superresolution_module':
+                          'SuperresolutionHybrid2X'})
+    for G in (port, texture, eg3d):
         opts = metric_utils.MetricOptions(generator=G, device='cpu')
         with pytest.raises(ValueError, match='user-specified image '
                                              'transformations'):

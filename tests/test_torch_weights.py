@@ -10,38 +10,68 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
+from next3d_tpu.models import EG3DTriPlaneGenerator as JaxEG3D
 from next3d_tpu.models import TriPlaneGenerator as JaxGenerator
+from next3d_tpu.nn import SG3Generator as JaxSG3
 from next3d_tpu.utils import obj_io as jax_obj_io
 from next3d_tpu.utils.pkl_import import params_to_state_dict
+from next3d_tpu_torch.models.triplane_eg3d import EG3DTriPlaneGenerator
 from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
+from next3d_tpu_torch.nn.stylegan3 import SG3Generator
 from next3d_tpu_torch.utils import obj_io, weights
 from next3d_tpu_torch.utils.synthetic_head import synthetic_head
 from next3d_tpu_torch.utils.weights import load_jax_params
 
+from test_torch_eg3d import EG3D_CFG
 from test_torch_generator import CFG
+from test_torch_sg3 import SG3_CONFIGS
+
+# the buffers of the SG3 and EG3D generators that the JAX package keeps
+# as param leaves
+SG3_BUFFERS = ('transform', 'freqs', 'phases', 'magnitude_ema', 'w_avg')
 
 
-def test_every_jax_param_lands_strictly():
-    """The JAX tree of the small generator (shapes from jax.eval_shape of
-    its init) and the port's state_dict have the same keys and shapes, and
-    the whole tree loads under strict=True."""
-    mesh, _ = synthetic_head()
-    jg = JaxGenerator(topology_path=mesh, rasterizer_impl='scatter',
-                      rasterizer_patch=16, **CFG)
+def _lands_strictly(jg, port):
+    """The JAX tree of ``jg`` (shapes from jax.eval_shape of its init, values
+    seeded) and ``port``'s state_dict have the same keys and shapes, and the
+    whole tree loads under strict=True. Returns the tree and its flat
+    form."""
     shapes = jax.eval_shape(jg.init, jax.random.PRNGKey(0))
     rng = np.random.RandomState(0)
     tree = jax.tree_util.tree_map(
         lambda s: np.asarray(rng.randn(*s.shape), np.float32), shapes)
-    port = TriPlaneGenerator(topology_path=mesh, **CFG)
     flat = params_to_state_dict(tree)
     assert set(flat) == set(port.state_dict())
     load_jax_params(port, tree)
     for key, value in port.state_dict().items():
         np.testing.assert_array_equal(value.numpy(), flat[key])
+    return tree, flat
+
+
+def test_every_jax_param_lands_strictly():
+    """The small flagship's JAX tree lands in the port's generator; so do
+    the SG3 (T and R) and EG3D trees, SG3's buffers where JAX keeps them as
+    param leaves; a missing or an unexpected key raises."""
+    mesh, _ = synthetic_head()
+    jg = JaxGenerator(topology_path=mesh, rasterizer_impl='scatter',
+                      rasterizer_patch=16, **CFG)
+    port = TriPlaneGenerator(topology_path=mesh, **CFG)
+    tree, flat = _lands_strictly(jg, port)
     assert float(port.orth_scale) == float(flat['orth_scale'][0, 0])
+    for cfg in SG3_CONFIGS.values():
+        sg3 = SG3Generator(**cfg)
+        _, sg3_flat = _lands_strictly(JaxSG3(**cfg), sg3)
+        buffers = dict(sg3.named_buffers())
+        for key in sg3_flat:
+            if key.split('.')[-1] in SG3_BUFFERS:
+                assert key in buffers, key
+        assert torch.equal(sg3.synthesis.input.transform, torch.from_numpy(
+            sg3_flat['synthesis.input.transform']))
+    _lands_strictly(JaxEG3D(**EG3D_CFG), EG3DTriPlaneGenerator(**EG3D_CFG))
 
     # a missing or an unexpected key raises
     del tree['decoder']['net']['2']['bias']
@@ -93,8 +123,9 @@ def test_obj_io_matches_jax_package(tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port (its CLIs and its training path included,
     the augment pipe and the video dataset too, the checkpoint readers,
-    the metrics, the bench and the data parallelism),
-    and a generator built from it, pull in neither JAX nor any module of
+    the metrics, the bench, the data parallelism, the SG3 and EG3D
+    families, the cross-section and the registry), and each generator
+    built from it, pull in neither JAX nor any module of
     the JAX package, nor optax, click or PIL, which the card machine
     lacks."""
     code = (
@@ -128,7 +159,12 @@ def test_port_imports_no_jax():
         "'next3d_tpu_torch.metrics.metric_main', "
         "'next3d_tpu_torch.cli.calc_metrics', "
         "'next3d_tpu_torch.bench', 'next3d_tpu_torch.parallel.dist', "
-        "'next3d_tpu_torch.parallel.stats'} "
+        "'next3d_tpu_torch.parallel.stats', "
+        "'next3d_tpu_torch.ops.filtered_lrelu', "
+        "'next3d_tpu_torch.nn.stylegan3', "
+        "'next3d_tpu_torch.models.triplane_eg3d', "
+        "'next3d_tpu_torch.render.crosssection', "
+        "'next3d_tpu_torch.utils.registry'} "
         "<= set(names), names\n"
         "from next3d_tpu_torch.models import (triplane_next3d,"
         " triplane_texture)\n"
@@ -141,6 +177,15 @@ def test_port_imports_no_jax():
         "channel_base=64, channel_max=4, plane_resolution=64, "
         "rendering_kwargs={'superresolution_module': "
         "'SuperresolutionHybrid2X'})\n"
+        "from next3d_tpu_torch.models import triplane_eg3d\n"
+        "from next3d_tpu_torch.nn import stylegan3\n"
+        "triplane_eg3d.EG3DTriPlaneGenerator(z_dim=8, c_dim=25, w_dim=512, "
+        "img_resolution=128, img_channels=3, channel_base=1024, "
+        "channel_max=4, rendering_kwargs={'superresolution_module': "
+        "'SuperresolutionHybrid2X'})\n"
+        "stylegan3.SG3Generator(z_dim=8, c_dim=0, w_dim=8, "
+        "img_resolution=16, img_channels=3, channel_base=64, "
+        "channel_max=4, num_layers=3, num_critical=1)\n"
         "import next3d_tpu_torch.cli.main\n"
         "import next3d_tpu_torch.bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
