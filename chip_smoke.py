@@ -164,11 +164,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      metric-fid2k_full.jsonl, its wall time, peak memory and K1 and K4
      launches; the feature loop's img/s (320 images at batch 16) beside
      the generator's alone; KID, PR and IS over 256 generated images, each
-     finite; (c) ``train --metrics fid2k_full`` at phase 13's config, two
-     ticks of one batch of 4 with a snapshot after the second: its record
-     in metric-fid2k_full.jsonl (the hook prints a failure and trains on,
-     so the record decides), finite, with its launches. It ends with a
-     {"metrics": ...} line.
+     finite; (c) ``train --metrics fid256_full`` (fid2k_full's code on
+     256 generated images, registered by the script) at phase 13's config,
+     two ticks of one batch of 4 with a snapshot after the second: its
+     record in metric-fid256_full.jsonl (the hook prints a failure and
+     trains on, so the record decides), finite, with its launches. It ends
+     with a {"metrics": ...} line.
  18. bf16 training, remat and the bench: (a) K4's bf16 backward (the
      float32 backward kernel, its result cast to bf16 once; the autograd
      Function that bf16 planes take under grad mode) at phase 4's shapes,
@@ -226,6 +227,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      256`` (SuperresolutionHybrid4X) on phase 13's images resized to
      256^2, 2 batches of 4 through train_run. It ends with a
      {"model_families": ...} line.
+ 21. the 'tiled' and 'scatter' rasterizers (render/rasterizer.py, plain
+     torch ports of the JAX package's XLA compositions, no kernel) and the
+     JAX package's rasterizer selection (check_rasterizer_selection): (a)
+     both on phase 3's input (16 images at 256^2; 'scatter' at
+     __graft_entry__'s face chunk 9976, 'tiled' at two tile steps) on the
+     card against the same calls on the CPU, pix_to_face and zbuf bit for
+     bit, each against K2's pix_to_face, timed beside K2's wrapper; (b)
+     the flagship and the texture variant built with each on phase 6's and
+     phase 9's weights: forwards at batch 1 and 4, finite, no binned
+     kernel and K4 twice a forward, img/s and peak memory, the image's gap
+     to the default forward and the pixels whose face differs from K1's
+     (K2's); (c) 'auto' at 1024^2 planes falls back to 'tiled' with the
+     JAX rule's capacity in both generators, and the texture variant runs
+     a batch-1 forward (img/s, peak memory; the flagship's StyleUNets take
+     no planes above 256^2, in either package); at 96^2, which no
+     generator can be built at (the backbones take powers of two), the
+     selection alone. It ends with a
+     {"rasterizers": ...} line, then a {"phase_s": ..., "total_s": ...}
+     line with each phase's seconds.
 
 Every kernel is timed by CUDA events beside its plain version and, where
 one PyTorch call computes the same function, that call (library_ms); the
@@ -277,7 +297,8 @@ the in-repo synthetic head. The run uses no JAX. It ends with a
 {"train": ...} line, a {"train_variants": ...} line, a {"bf16": ...}
 line, a {"checkpoints": ...} line, a {"metrics": ...} line, a
 {"bench": ...} line, a {"parallel": ...} line, a {"model_families": ...}
-line, the card line, a JSON object with one entry per kernel (K1, K2, K4
+line, a {"rasterizers": ...} line, the {"phase_s": ...} line, the card
+line, a JSON object with one entry per kernel (K1, K2, K4
 and K4's backward with their training launches: phase 13's, and for K2
 phase 15's texture run; K1, K4 and K4's backward with phase 16's and phase
 17's launches a command, phase 19 (a)'s and phase 20's by path; K4's bf16
@@ -297,6 +318,8 @@ import tempfile
 import time
 
 import torch
+
+T_START = time.time()
 
 # the FFHQ 512^2 rendering config of __graft_entry__.py:10-18 and the
 # generator's construction kwargs, as a snapshot stores them; the card's
@@ -2132,6 +2155,10 @@ INCEPTION_PROBS_TOL = 1e-5
 # phase 17's dataset: the flagship's own images, enough for FID's
 # statistics to be finite
 METRIC_IMAGES = 64
+# phase 17 (c): the metric that ``train --metrics`` computes, fid2k_full's
+# code on fewer generated images ((b) runs fid2k_full itself)
+TRAIN_METRIC = 'fid256_full'
+TRAIN_METRIC_IMAGES = 256
 
 
 def write_metric_data(G, mesh, lms, device, root, n=METRIC_IMAGES):
@@ -2175,15 +2202,17 @@ def check_metrics(G, files, device, card, kernels):
     finite, its K1 and K4 launches, wall time and peak memory; the
     feature loop's img/s and the generator's alone at batch 16; KID, PR
     and IS over 256 generated images, each finite. (c) ``train --metrics
-    fid2k_full`` (phase 13's config: the train command's defaults, batch 4) on the dataset for two
-    ticks of one batch with a snapshot after the second:
+    fid256_full`` (TRAIN_METRIC: fid2k_full's code on 256 generated images,
+    registered here; phase 13's config: the train command's defaults,
+    batch 4) on the dataset for two ticks of one batch with a snapshot
+    after the second:
     its jsonl record, not its exit, decides (the hook prints a failure and
     trains on). Returns the phase's launches and summary."""
     import numpy as np
     from next3d_tpu_torch.cli import main as cli
     from next3d_tpu_torch.cli.common import load_generator
     from next3d_tpu_torch.data.dataset import ImageFolderDataset
-    from next3d_tpu_torch.metrics import inception, metric_utils
+    from next3d_tpu_torch.metrics import inception, metric_main, metric_utils
     from next3d_tpu_torch.metrics.inception_score import compute_is
     from next3d_tpu_torch.metrics.kernel_inception_distance import \
         compute_kid
@@ -2319,34 +2348,42 @@ def check_metrics(G, files, device, card, kernels):
     summary['kid_pr_is_256'] = others
     del cli_generator, opts
 
-    # (c) train --metrics fid2k_full
+    # (c) train --metrics: fid2k_full's code (compute_fid over the whole
+    # dataset) registered on TRAIN_METRIC_IMAGES generated images, so that
+    # the training loop's hook runs it in less time than (b) already took
+    def fid256_full(opts):
+        from next3d_tpu_torch.metrics.frechet_inception_distance import \
+            compute_fid
+        return {TRAIN_METRIC: compute_fid(opts, max_real=None,
+                                          num_gen=TRAIN_METRIC_IMAGES)}
+    metric_main.register_metric(fid256_full)
     out = os.path.join(tmp, 'run_metrics')
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
     result, counts = counted(lambda: cli.run([
         'train', '--outdir', out, '--data', data, '--batch', '4', '--kimg',
         '0.008', '--tick', '0.004', '--snap', '1', '--topology-path', obj,
-        '--device', str(device), '--metrics', 'fid2k_full']), kernels)
+        '--device', str(device), '--metrics', TRAIN_METRIC]), kernels)
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    path = os.path.join(out, 'metric-fid2k_full.jsonl')
+    path = os.path.join(out, f'metric-{TRAIN_METRIC}.jsonl')
     written = []
     if os.path.exists(path):
         with open(path) as f:
             written = [json.loads(line) for line in f]
-    launches['train --metrics fid2k_full'] = {
+    launches[f'train --metrics {TRAIN_METRIC}'] = {
         k: counts[k] for k in ('K1', 'K4', 'K4b')}
-    log(f'train --metrics fid2k_full, 2 ticks of one batch of 4 at 512^2: '
-        f'{wall:.1f} s; records {written}; peak device memory {peak:.2f} '
-        f'GiB; launches {counts}; on {card}')
+    log(f'train --metrics {TRAIN_METRIC}, 2 ticks of one batch of 4 at '
+        f'512^2: {wall:.1f} s; records {written}; peak device memory '
+        f'{peak:.2f} GiB; launches {counts}; on {card}')
     if result['cur_nimg'] != 8 or len(written) != 1 or \
             written[0]['snapshot_pkl'] != 'network-snapshot-000000.pkl' or \
             written[0]['cur_nimg'] != 8 or \
-            not math.isfinite(written[0]['results']['fid2k_full']):
-        raise RuntimeError('train --metrics wrote no finite fid2k_full '
+            not math.isfinite(written[0]['results'][TRAIN_METRIC]):
+        raise RuntimeError(f'train --metrics wrote no finite {TRAIN_METRIC} '
                            'record after its snapshot')
-    summary['train_fid2k_full'] = dict(
-        value=written[0]['results']['fid2k_full'],
+    summary[f'train_{TRAIN_METRIC}'] = dict(
+        value=written[0]['results'][TRAIN_METRIC],
         metric_s=written[0]['total_time'], command_s=wall,
         peak_device_mem_gb=peak)
     summary['launches'] = launches
@@ -2742,6 +2779,8 @@ def parallel_rank(rank, init_file, spec_path, out_dir):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # as the reference's halves (check_two_ranks)
+    torch.backends.cudnn.deterministic = True
     spec = torch.load(spec_path, weights_only=False)
     device = torch.device(spec['device'])
     if device.type == 'cuda':
@@ -2918,8 +2957,17 @@ def check_two_ranks(files, mesh, device, card):
     weights (``grads_gate``), the losses within 1e-4 relative, and both
     ranks' G, D and G_ema bit-equal after ``run_phases``."""
     spec = parity_inputs(files, device)
+    # the ranks and this process compute each half with cuDNN's
+    # deterministic algorithms: with the default ones, which may add with
+    # atomics, Dmain's worst gap ranged from 0.000106 to 0.0232 of a
+    # tensor's largest gradient over five runs on H100s and failed the gate
+    # once (b4.conv.weight); run-to-run noise is not what this phase checks
+    torch.backends.cudnn.deterministic = True
     t0 = time.time()
-    want = parity_reference(mesh, spec, device)
+    try:
+        want = parity_reference(mesh, spec, device)
+    finally:
+        torch.backends.cudnn.deterministic = False
     ref_s = time.time() - t0
     with tempfile.TemporaryDirectory() as tmp:
         spec_path = os.path.join(tmp, 'spec.pt')
@@ -3298,6 +3346,247 @@ def check_model_families(G, files, mesh, inputs, device, card, kernels):
     log(f'phase 20: {out["wall_s"]:.1f} s')
     return launches, out
 
+# phase 21: the face chunk of __graft_entry__.py's configs for the scatter
+# golden, the tile steps of 'tiled' timed on the card (neither changes a
+# result), and the plane resolutions at which the selection falls back
+SCATTER_FACE_CHUNK = 9976
+TILE_CHUNKS = (32, 256)
+FALLBACK_RESOLUTIONS = (1024, 96)
+
+
+def _same(got, want):
+    """Elements of pix_to_face and zbuf that differ between two results."""
+    return tuple(int((a.cpu() != b.cpu()).sum()) for a, b in zip(got, want))
+
+
+def check_rasterizer_alone(G, mesh, lms, device, card):
+    """Phase 21 (a): 'tiled' and 'scatter' (render/rasterizer.py, plain
+    torch) on phase 3's input, the head's 4 views of 4 jittered
+    expressions (16 images) at 256^2, on CUDA tensors against the same
+    functions on CPU tensors (bit for bit), each against K2's pix_to_face,
+    timed (CUDA events and profiler device time) beside K2's wrapper."""
+    from next3d_tpu_torch.ops import raster
+    from next3d_tpu_torch.render import rasterizer
+
+    res = G.uv_resolution
+    with torch.no_grad():
+        tv, _ = G.project_views(*G._split_v(head_batch(mesh, lms, 4,
+                                                       device)))
+    faces = G.faces
+    k2 = raster.rasterize_binned(tv, faces, res)
+    out = dict(images=tv.shape[0], size=res, k2=dict(
+        ms=time_ms(lambda: raster.rasterize_binned(tv, faces, res)),
+        device_ms=device_ms(lambda: raster.rasterize_binned(tv, faces,
+                                                            res))))
+    runs = {f'tiled tile_chunk {tc}': lambda v, f, tc=tc:
+            rasterizer.rasterize_mesh_tiled(v, f, res, tile_chunk=tc)
+            for tc in TILE_CHUNKS}
+    runs[f'scatter face_chunk {SCATTER_FACE_CHUNK}'] = lambda v, f: \
+        rasterizer.rasterize_mesh(v, f, res, face_chunk=SCATTER_FACE_CHUNK)
+    first = None
+    for name, fn in runs.items():
+        got = fn(tv, faces)
+        t0 = time.perf_counter()
+        cpu = fn(tv.cpu(), faces.cpu())
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        differ = _same(got, cpu)
+        first = got if first is None else first
+        entry = dict(
+            card_vs_cpu_differ=differ, vs_k2_pix_to_face_differ=_same(
+                got, k2)[0], vs_tiled_differ=_same(got, first),
+            covered=int((got[0] >= 0).sum()),
+            ms=time_ms(lambda: fn(tv, faces), reps=5, warmup=1),
+            device_ms=device_ms(lambda: fn(tv, faces), reps=3),
+            cpu_ms=cpu_ms)
+        out[name] = entry
+        log(f'phase 21 (a) {name}, {tv.shape[0]} images at {res}^2: card '
+            f'vs CPU, (pix_to_face, zbuf) elements that differ {differ}; '
+            f'pixels whose face differs from K2\'s '
+            f'{entry["vs_k2_pix_to_face_differ"]} of {k2[0].numel()}, '
+            f'from the first tile step\'s {entry["vs_tiled_differ"]}; '
+            f'{entry["ms"]:.3f} ms (device {entry["device_ms"]:.3f} ms; '
+            f'CPU {cpu_ms:.1f} ms) against K2 {out["k2"]["ms"]:.3f} ms '
+            f'(device {out["k2"]["device_ms"]:.4f} ms); on {card}')
+        # the tile step changes no result; 'scatter' may pick the other
+        # face at a float32 tie, and its zbuf rounds in another form
+        if differ != (0, 0) or (name.startswith('tiled')
+                                and entry['vs_tiled_differ'] != (0, 0)):
+            raise RuntimeError(f'{name}: the card and the CPU disagree, or '
+                               f'the tile step changed the result')
+    return out
+
+
+def check_impl_forwards(G, build, inputs, device, card, kernels):
+    """Phase 21 (b): the flagship and the texture variant built with
+    rasterizer_impl 'tiled' and 'scatter' on the default models' weights:
+    a forward at batch 1 and 4, finite, launching no binned kernel and K4
+    twice a forward; img/s and peak memory; the image's gap to the
+    default forward at batch 4 under deterministic cuDNN (beside the
+    default forward's own run-to-run spread) and the pixels whose face
+    differs from the default rasterizer's (K1, or K2 for the texture
+    variant) on the same projected views."""
+    from next3d_tpu_torch.models.triplane_texture import \
+        TriPlaneTextureGenerator
+    from next3d_tpu_torch.ops import raster
+    from next3d_tpu_torch.render import rasterizer
+
+    z, c, v = inputs
+    T = build(TriPlaneTextureGenerator)
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, base, flame_only in (('flagship', G, False),
+                                       ('texture variant', T, True)):
+            def forward_of(model):
+                def forward(n):
+                    vn = v[n][:, :5023] if flame_only else v[n]
+                    return model(z[n], c[n], vn, truncation_psi=0.7,
+                                 truncation_cutoff=14, noise_mode='const')
+                return forward
+            ref = forward_of(base)(4)
+            spread = max(float((forward_of(base)(4)[k] - ref[k]).abs().max())
+                         for k in ref)
+            verts = v[4][:, :5023]
+            res = base.uv_resolution
+            if flame_only:
+                tv = base.project_orth(verts)
+                pf_default = raster.rasterize_binned(tv, base.faces, res)[0]
+            else:
+                tv, _ = base.project_views(verts, v[4][:, 5023:])
+                pf_default = raster.rasterize_binned_uv(
+                    tv, base.faces, base.face_uv[None], res)[0]
+            for impl in ('tiled', 'scatter'):
+                Gi = build(type(base), rasterizer_impl=impl)
+                Gi.load_state_dict(base.state_dict())
+                if Gi.rasterizer_impl != impl:
+                    raise RuntimeError(f'{impl} became {Gi.rasterizer_impl}')
+                forward = forward_of(Gi)
+                outs, counts = counted(lambda: {n: forward(n)
+                                                for n in (1, 4)}, kernels)
+                for n, o in outs.items():
+                    check_outputs(o, n)
+                if counts['K1'] or counts['K2'] or counts['K3'] \
+                        or counts['K5'] or counts['K4'] != 4:
+                    raise RuntimeError(f'{name} {impl}: launches {counts}')
+                fn = rasterizer.rasterize_mesh_tiled if impl == 'tiled' \
+                    else rasterizer.rasterize_mesh
+                pf = fn(tv, base.faces, res)[0]
+                gap = {k: float((outs[4][k] - ref[k]).abs().max())
+                       for k in ('image', 'image_raw')}
+                torch.backends.cudnn.deterministic = False
+                torch.cuda.reset_peak_memory_stats(device)
+                rates = throughput(f'{name} {impl!r}', forward, card)
+                peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+                torch.backends.cudnn.deterministic = True
+                entry = dict(img_s=rates, peak_device_mem_gb=peak,
+                             launches=counts, max_abs_vs_default=gap,
+                             default_spread=spread,
+                             pix_to_face_differ=int((pf != pf_default).sum()),
+                             pixels=pf.numel())
+                out[f'{name} {impl}'] = entry
+                log(f'phase 21 (b) {name} rasterizer_impl={impl!r}: launches '
+                    f'{counts} at batch 1 and 4; image / image_raw max-abs vs '
+                    f'the default {gap["image"]:.3g} / '
+                    f'{gap["image_raw"]:.3g} (default run-to-run {spread:.3g}'
+                    f'); {entry["pix_to_face_differ"]} of {pf.numel()} '
+                    f'pixels whose face differs from the default '
+                    f'rasterizer\'s; peak device memory {peak:.2f} GiB; on '
+                    f'{card}')
+                del Gi, outs
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del T
+    return out
+
+
+def check_fallback(G, build, inputs, mesh, device, card, kernels):
+    """Phase 21 (c): the JAX package's selection at the plane resolutions
+    where the binned kernels' limits bind. At 1024 both generators built
+    with 'auto' fall back to 'tiled' (the largest face spans 27.4 px,
+    above 80% of a 32-px tile) with the capacity JAX's rule gives, and the
+    texture variant runs one forward at batch 1 (the flagship's StyleUNets
+    take no planes above 256^2, in either package); at 96 (a 32-px tile's
+    segments would exceed the JAX kernel's window) no generator can be
+    built, since the StyleGAN2 backbones of both packages take powers of
+    two, so the selection runs alone on the flagship's views and faces."""
+    import types
+
+    import numpy as np
+    from next3d_tpu_torch.models.triplane_next3d import TriPlaneGenerator
+    from next3d_tpu_torch.models.triplane_texture import \
+        TriPlaneTextureGenerator
+    from next3d_tpu_torch.render.rasterizer import required_tile_capacity
+
+    z, c, v = inputs
+    out = {}
+    v_flip = np.asarray(mesh.verts, np.float32) * np.asarray([1., -1., 1.])
+    tv = v_flip @ G.view_tforms.cpu().numpy().transpose(0, 2, 1)
+    tv = (tv + np.asarray([0.0, -0.01, -0.01])) * 5.0
+    tv = tv * np.asarray([1., -1., -1.]) + np.asarray([0., 0., 10.])
+    faces = G.faces.cpu().numpy()
+    for res in FALLBACK_RESOLUTIONS:
+        expect = ('tiled', max(448, -(-required_tile_capacity(
+            tv, faces, res, 8) // 4)))
+        if res & (res - 1):
+            ns = types.SimpleNamespace(
+                view_tforms=G.view_tforms.cpu(), faces=G.faces.cpu(),
+                uv_resolution=res, rasterizer_impl='auto',
+                rasterizer_tile_capacity=448, rasterizer_patch=32)
+            TriPlaneGenerator._validate_rasterizer_capacity(ns, mesh.verts)
+            got = {'selection alone': (ns.rasterizer_impl,
+                                       ns.rasterizer_tile_capacity)}
+            out[res] = dict(selection=got, expected=expect)
+            log(f'phase 21 (c) at {res}^2 planes: \'auto\' selects {got} '
+                f'(the backbones take powers of two)')
+        else:
+            got = {}
+            for cls in (TriPlaneGenerator, TriPlaneTextureGenerator):
+                Gi = build(cls, plane_resolution=res)
+                got[cls.__name__] = (Gi.rasterizer_impl,
+                                     Gi.rasterizer_tile_capacity)
+            # Gi: the texture variant
+            torch.cuda.reset_peak_memory_stats(device)
+            with torch.no_grad():
+                def forward():
+                    return Gi(z[1], c[1], v[1][:, :5023], truncation_psi=0.7,
+                              truncation_cutoff=14, noise_mode='const')
+                o, counts = counted(forward, kernels)
+                check_outputs(o, 1)
+                ms = median_ms(forward, reps=3)
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            out[res] = dict(selection=got, expected=expect,
+                            texture_img_s=1e3 / ms, texture_forward_ms=ms,
+                            peak_device_mem_gb=peak, launches=counts)
+            log(f'phase 21 (c) at {res}^2 planes: \'auto\' selects {got}; '
+                f'the texture variant\'s batch-1 forward finite, {ms:.1f} ms '
+                f'({1e3 / ms:.3f} img/s), peak device memory {peak:.2f} GiB, '
+                f'launches {counts}; on {card}')
+            del Gi, o
+            if counts['K2'] or counts['K4'] != 2:
+                raise RuntimeError(f'the {res}^2 fallback launched {counts}')
+        if any(x != expect for x in got.values()):
+            raise RuntimeError(f'at {res}^2 \'auto\' selected {got}, not '
+                               f'{expect}')
+    return out
+
+
+def check_rasterizer_selection(G, build, mesh, lms, inputs, device, card,
+                               kernels):
+    """Phase 21: the 'tiled' and 'scatter' rasterizers and the selection
+    (check_rasterizer_alone, check_impl_forwards, check_fallback)."""
+    t0 = time.time()
+    out = dict(card=card)
+    with torch.no_grad():
+        out['alone'] = check_rasterizer_alone(G, mesh, lms, device, card)
+        out['forwards'] = check_impl_forwards(G, build, inputs, device, card,
+                                              kernels)
+    torch.cuda.empty_cache()
+    out['fallback'] = check_fallback(G, build, inputs, mesh, device, card,
+                                     kernels)
+    out['wall_s'] = time.time() - t0
+    log(f'phase 21: {out["wall_s"]:.1f} s')
+    return out
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -3311,6 +3600,16 @@ def main():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
     device = torch.device('cuda', 0)
+    wall = {}
+    started = [T_START]
+
+    def finished(phase):
+        """Log and keep the seconds since the last phase ended."""
+        now = time.time()
+        wall[phase] = round(now - started[-1], 1)
+        started.append(now)
+        log(f'phases {phase}: {wall[phase]} s')
+
     card = card_line()
     log(f'card: {card}')
     log(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
@@ -3332,6 +3631,7 @@ def main():
             + so.with_suffix('.log').read_text().strip())
     parent = parent_backward(opts.parent) if opts.parent else None
     log(f'kernel build {time.time() - t0:.1f} s')
+    finished('1-2')
 
     mesh, lms = load_head()
     head_lms = lms   # phase 10 rebinds lms to the batch's landmarks
@@ -3378,6 +3678,7 @@ def main():
         check_zbuffer_cases(device)
         stats['K4'] = check_k4(device)
         stats['K6'], launches['K6'] = check_k6(device)
+        finished('3-5')
         outs, counts = counted(lambda: {n: forward(n) for n in (1, 4)},
                                kernels)
         for n, out in outs.items():
@@ -3474,10 +3775,12 @@ def main():
                 raise RuntimeError('pallas moved the image too far')
             del Gi
         torch.backends.cudnn.deterministic = False
+        finished('6-11')
 
         cli_launches, cli_reenact_fps = check_clis(
             G, G_KWARGS, mesh, head_lms, device, card, kernels, ref, spread,
             (z[4], c[4], v[4]))
+        finished('12')
 
     train_tmp = tempfile.mkdtemp(prefix='chip_smoke_train_')
     try:
@@ -3485,6 +3788,7 @@ def main():
         train_launches, train = check_training(files, device, card, kernels,
                                                profile=opts.profile)
         launches['K4b'] = train_launches['K4b']
+        finished('13')
 
         with torch.no_grad():
             # bench.py's default batch, for phase 14's flagship
@@ -3494,15 +3798,18 @@ def main():
             stats['K4bf16'], launches['K4bf16'], bf16 = check_bf16_serving(
                 build, forward_of, models, card, kernels, (z, c, v),
                 fp32_outs, mesh, head_lms, device)
+        finished('14')
         del models, fp32_outs, outs, outs_t, T
         train_launches['K2'], variants = check_training_variants(
             files, mesh, device, card, kernels)
+        finished('15')
         t0 = time.time()
         ckpt_launches, checkpoints = check_checkpoints(
             G, files, mesh, head_lms, device, card, kernels, ref, spread,
             (z[4], c[4], v[4]), cli_reenact_fps)
         checkpoints['wall_s'] = time.time() - t0
         log(f'phase 16: {checkpoints["wall_s"]:.1f} s')
+        finished('16')
         t0 = time.time()
         files['metric_data'], files['metric_obj'] = write_metric_data(
             G, mesh, head_lms, device, train_tmp)
@@ -3510,6 +3817,7 @@ def main():
                                                  kernels)
         metrics['wall_s'] = time.time() - t0
         log(f'phase 17: {metrics["wall_s"]:.1f} s')
+        finished('17')
 
         t0 = time.time()
         stats['K4b_bf16'] = check_k4_bf16_backward(device)
@@ -3523,6 +3831,7 @@ def main():
         phase18 = dict(remat=remat, runs=bench_runs, card=card,
                        wall_s=time.time() - t0)
         log(f'phase 18: {phase18["wall_s"]:.1f} s')
+        finished('18')
 
         t0 = time.time()
         # phase 19's two ranks take the card's memory too
@@ -3531,10 +3840,17 @@ def main():
             files, mesh, device, card, kernels, train)
         parallel['wall_s'] = time.time() - t0
         log(f'phase 19: {parallel["wall_s"]:.1f} s')
+        finished('19')
 
         torch.cuda.empty_cache()
         family_launches, families = check_model_families(
             G, files, mesh, (z, c, v), device, card, kernels)
+        finished('20')
+
+        torch.cuda.empty_cache()
+        rasterizers = check_rasterizer_selection(
+            G, build, mesh, head_lms, (z, c, v), device, card, kernels)
+        finished('21')
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
 
@@ -3593,6 +3909,9 @@ def main():
     log(json.dumps({'bench': phase18}))
     log(json.dumps({'parallel': parallel}))
     log(json.dumps({'model_families': families}))
+    log(json.dumps({'rasterizers': rasterizers}))
+    log(json.dumps({'phase_s': wall,
+                    'total_s': round(time.time() - T_START, 1)}))
     log(card)
     log(json.dumps({'kernels': line}))
     log(json.dumps({'ok': True, 'device': {

@@ -102,8 +102,6 @@ def build_generator_from_kwargs(init_kwargs, topology_path,
                'channel_base', 'channel_max', 'plane_resolution',
                'rasterizer_patch', 'rasterizer_face_chunk')
     kw = {k: v for k, v in kw.items() if k in allowed}
-    # the port's binned rasterizers take every face at once: no face chunk
-    kw.pop('rasterizer_face_chunk', None)
     if kw.get('sr_kwargs'):
         kw['sr_kwargs'] = {k: v for k, v in kw['sr_kwargs'].items()
                            if k not in _SR_IGNORED}

@@ -1,15 +1,18 @@
 """The port's CLI:
 
     python -m next3d_tpu_torch.cli.main {gen-samples,gen-videos,reenact,train,
-                                         calc-metrics} ...
+                                         calc-metrics,dataset-tool,
+                                         preprocess} ...
 
 The options and their defaults are those of the JAX package's commands
 (next3d_tpu/cli/gen_samples.py, gen_videos.py, reenact.py, train.py,
-calc_metrics.py), plus
-``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions of
-the kernels). The mesh options default to the reference's demo FLAME files;
-a mesh file that does not exist stops the command with a
-``FileNotFoundError`` that names its option.
+calc_metrics.py, dataset_tool.py, preprocess_cli.py), plus ``--device``
+(default ``cuda``; ``--device cpu`` runs the plain versions of the kernels)
+for the commands that run a model. ``dataset-tool`` and ``preprocess
+{align,crop,mirror,cameras}`` touch no tensor and take no ``--device``. The
+mesh options default to the reference's demo FLAME files; a mesh file that
+does not exist stops the command with a ``FileNotFoundError`` that names
+its option.
 """
 
 from __future__ import annotations
@@ -91,6 +94,22 @@ def build_parser():
         p.add_argument('--device', type=str, default='cuda',
                        help='torch device (default cuda; cpu runs the '
                             'kernels\' plain versions)')
+
+    p = sub.add_parser('dataset-tool', help='pack a dataset folder or zip')
+    p.add_argument('--source', required=True,
+                   help='folder/zip with images+meshes+lms, cifar10 tar.gz, '
+                        'or mnist idx file')
+    p.add_argument('--dest', required=True, help='output folder or .zip')
+    p.add_argument('--resolution', type=int, default=None)
+    p.add_argument('--transform', choices=['center-crop', 'center-crop-wide'],
+                   default=None)
+    p.add_argument('--max-images', type=int, default=None)
+
+    from . import preprocess_cli
+    preprocess_cli.add_options(sub.add_parser(
+        'preprocess', help='image-only dataset preparation (align / crop / '
+                           'mirror / cameras)').add_subparsers(
+        dest='stage', required=True))
     return parser
 
 
@@ -105,7 +124,14 @@ def _require(opts, *names):
 def run(argv=None):
     """Run one command; returns its timings (see each command's function)."""
     opts = build_parser().parse_args(argv)
-    kw = {k: v for k, v in vars(opts).items() if k != 'command'}
+    kw = {k: v for k, v in vars(opts).items() if k not in ('command',
+                                                          'stage')}
+    if opts.command == 'dataset-tool':
+        from .dataset_tool import convert_dataset
+        return convert_dataset(**kw)
+    if opts.command == 'preprocess':
+        from .preprocess_cli import COMMANDS
+        return COMMANDS[opts.stage](**kw)
     if opts.command == 'gen-samples':
         from .gen_samples import generate_images
         _require(opts, 'obj_path', 'lms_path')

@@ -8,10 +8,14 @@ superresolution, decoder, neural_blending, orth_scale, orth_shift), so
 
 The 4 orthographic views are folded into the batch axis and rasterized in
 one call: by default to kernel K1, or, as ``rasterizer_impl`` names it, to
-K3 ('pallas_binned16') or K5 ('pallas'); the 3 planes are sampled by kernel
-K4 inside the volume renderer. The mouth crop and paste are per-sample
-slices plus antialiased ``F.interpolate``, which reads the landmark boxes on
-the host.
+K3 ('pallas_binned16'), K5 ('pallas') or the plain torch 'tiled' (with
+``rasterizer_tile_capacity``) and 'scatter' (with ``rasterizer_patch`` and
+``rasterizer_face_chunk``) rasterizers. The constructor checks the choice
+against the neutral mesh as the JAX package does, and 'auto' falls back to
+'tiled' where JAX's does (``_validate_rasterizer_capacity``). The 3 planes
+are sampled by kernel K4 inside the volume renderer. The mouth crop and
+paste are per-sample slices plus antialiased ``F.interpolate``, which reads
+the landmark boxes on the host.
 
 ``force_fp32=True`` (the default, as in JAX) runs everything float32.
 ``force_fp32=False`` is the JAX package's serving fast path, by explicit
@@ -41,11 +45,11 @@ from ..nn.stylegan2 import Generator as StyleGAN2Backbone
 from ..ops.grid_sample import grid_sample_2d
 from ..ops.interpolate import (interpolate_nearest, paste_resized_region,
                                resample_region)
-from ..ops.raster import TILE
 from ..render.fill_mouth import fill_mouth
 from ..render.mesh import angle2matrix, batch_orth_proj, face_vertices
 from ..render.rasterizer import (rasterize_uv_with_alpha,
-                                 required_patch_size, resolve_impl)
+                                 required_patch_size, required_tile_capacity,
+                                 select_impl)
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer, layout_for
 from ..utils.obj_io import ObjMesh, load_obj
@@ -54,6 +58,13 @@ from .osg_decoder import OSGDecoder
 
 RENDERING_VIEWS = ((0, 0, 0), (0, 90, 0), (0, -90, 0), (90, 0, 0))
 N_FLAME_VERTS = 5023
+# The JAX package's binned kernels read at most MAX_SEG entries of a 32-px
+# tile (MAX_SEG16 of a 16-px one; next3d_tpu/ops/pallas_raster.py:185,559),
+# and its constructor selects the rasterizer by them. The port's kernels
+# have no such window, but select by the same thresholds, so that a config
+# selects the same rasterizer, and renders the same pixels, in both.
+MAX_SEG = 4096
+MAX_SEG16 = 1024
 
 
 def _load_eye_mask(path, size):
@@ -77,6 +88,7 @@ class TriPlaneGenerator(nn.Module):
                  topology_path, uv_face_eye_mask_path=None, sr_num_fp16_res=0,
                  mapping_kwargs=None, rendering_kwargs=None, sr_kwargs=None,
                  rasterizer_impl='auto', rasterizer_patch=32,
+                 rasterizer_face_chunk=2048, rasterizer_tile_capacity=448,
                  plane_resolution=256, force_fp32=True, generator=None,
                  **synthesis_kwargs):
         super().__init__()
@@ -90,8 +102,11 @@ class TriPlaneGenerator(nn.Module):
         self.rendering_kwargs.setdefault('gather_bf16', not force_fp32)
         self.neural_rendering_resolution = 64
         self.uv_resolution = R = plane_resolution
-        self.rasterizer_impl = resolve_impl(rasterizer_impl)
+        select_impl(rasterizer_impl, R)            # an unknown name raises
+        self.rasterizer_impl = rasterizer_impl
         self.rasterizer_patch = rasterizer_patch
+        self.rasterizer_face_chunk = rasterizer_face_chunk
+        self.rasterizer_tile_capacity = rasterizer_tile_capacity
         mapping_kwargs = mapping_kwargs or {}
         kw = dict(mapping_kwargs=mapping_kwargs, generator=generator,
                   **synthesis_kwargs)
@@ -151,29 +166,64 @@ class TriPlaneGenerator(nn.Module):
             uv_face_eye_mask_path, R), persistent=False)
         self.register_buffer('view_tforms', torch.cat(
             [angle2matrix([v]) for v in RENDERING_VIEWS]), persistent=False)
-        self._validate_face_span(mesh.verts)
+        self._validate_rasterizer_capacity(mesh.verts)
 
-    def _validate_face_span(self, neutral_verts):
-        """Check the neutral mesh through all views at the init orth_scale
-        against the rasterizer (JAX :165-236, without the TPU kernels'
-        segment windows). The binned kernels (K1, K2, K3) bin a face by its
-        bbox, whose entries reach every tile it overlaps only while its span
-        stays below one 32-px tile; 20% slack absorbs expressions. K5 cuts
-        a face taller than its stripe, so its patch must cover the span."""
+    def _validate_rasterizer_capacity(self, neutral_verts):
+        """Check the configured rasterizer against the topology's neutral
+        mesh through all views at the init orth_scale (JAX :165-236), so
+        that a mis-sized one fails at construction: 'pallas_binned16' needs
+        its 16-px segments within MAX_SEG16 and spans below 80% of 32 px;
+        'auto' and 'pallas_binned' need their 32-px segments within MAX_SEG
+        and the same spans, with 25% slack for expressions, and where they
+        are not, 'auto' becomes 'tiled' with ``rasterizer_tile_capacity``
+        raised to a quarter of the 8-px occupancy and 'pallas_binned'
+        raises; 'tiled' needs 4x its capacity to cover that occupancy;
+        'scatter' and 'pallas' (K5, which cuts a face taller than its
+        stripe: the port's own check) need ``rasterizer_patch`` above the
+        span."""
         v = np.asarray(neutral_verts, np.float32) * np.asarray([1., -1., 1.])
         tv = v @ self.view_tforms.numpy().transpose(0, 2, 1)
         tv = (tv + np.asarray([0.0, -0.01, -0.01])) * 5.0
         tv = tv * np.asarray([1., -1., -1.]) + np.asarray([0., 0., 10.])
-        span = required_patch_size(tv, self.faces.numpy(), self.uv_resolution)
-        if self.rasterizer_impl == 'pallas':
-            if span >= self.rasterizer_patch:
-                raise ValueError(f'rasterizer_patch={self.rasterizer_patch} '
-                                 f'< required {span:.0f}px at '
-                                 f'{self.uv_resolution}px')
-        elif span >= TILE * 0.8:
-            raise ValueError(f'{self.rasterizer_impl}: face bbox span '
-                             f'{span:.0f}px approaches the {TILE}-px '
-                             f'rasterizer tile at {self.uv_resolution}px')
+        faces = self.faces.numpy()
+        res = self.uv_resolution
+        patch_need = required_patch_size(tv, faces, res)
+        if self.rasterizer_impl == 'pallas_binned16':
+            seg_need = required_tile_capacity(tv, faces, res, tile=16)
+            if seg_need * 1.25 + 128 > MAX_SEG16 or patch_need >= 32 * 0.8:
+                raise ValueError(
+                    f'pallas_binned16: tile=16 segments need {seg_need} '
+                    f'entries (max_seg={MAX_SEG16}) / span {patch_need:.0f}px '
+                    f'at {res}px; use pallas_binned or tiled')
+        if self.rasterizer_impl in ('auto', 'pallas_binned'):
+            seg_need = required_tile_capacity(tv, faces, res, tile=32)
+            over_seg = seg_need * 1.25 + 128 > MAX_SEG
+            if over_seg or patch_need >= 32 * 0.8:
+                why = (f'tile segments need {seg_need} entries '
+                       f'(max_seg={MAX_SEG})' if over_seg else
+                       f'face bbox span {patch_need:.0f}px approaches the '
+                       f'TILE=32 limit')
+                if self.rasterizer_impl != 'auto':
+                    raise ValueError(
+                        f'binned rasterizer: {why} at {res}px; use '
+                        f"rasterizer_impl='tiled' or a lower "
+                        f'plane_resolution')
+                self.rasterizer_impl = 'tiled'
+                need = required_tile_capacity(tv, faces, res, tile=8)
+                self.rasterizer_tile_capacity = max(
+                    self.rasterizer_tile_capacity, -(-need // 4))
+        if self.rasterizer_impl == 'tiled':
+            need = required_tile_capacity(tv, faces, res, tile=8)
+            if self.rasterizer_tile_capacity * 4 < need:
+                raise ValueError(
+                    f'rasterizer_tile_capacity={self.rasterizer_tile_capacity}'
+                    f' too small: neutral mesh already stacks {need} faces'
+                    f' per 8px tile at {res}px')
+        if self.rasterizer_impl in ('scatter', 'pallas') \
+                and patch_need >= self.rasterizer_patch:
+            raise ValueError(
+                f'rasterizer_patch={self.rasterizer_patch} < required '
+                f'{patch_need:.0f}px at {res}px')
 
     # --------------------------------------------------------------- mapping
     def mapping(self, z, c, truncation_psi=1, truncation_cutoff=None,
@@ -220,7 +270,9 @@ class TriPlaneGenerator(nn.Module):
         rendering = rasterize_uv_with_alpha(
             tv, self.faces, self.face_uv[None], res,
             patch=self.rasterizer_patch,
-            impl=self.rasterizer_impl).detach()           # (V*N, 3, H, W)
+            face_chunk=self.rasterizer_face_chunk, impl=self.rasterizer_impl,
+            tile_capacity=self.rasterizer_tile_capacity
+        ).detach()                                        # (V*N, 3, H, W)
         alpha = rendering[:, -1:]
         grid = rendering.permute(0, 2, 3, 1)[..., :2]
         # the views fold into the grid, not the texture batch: the texture

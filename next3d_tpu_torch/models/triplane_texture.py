@@ -5,8 +5,9 @@ training_avatar_texture/triplane.py, the generator when --model_version is
 unset). ``rasterize_orth`` projects the textured FLAME mesh into 4 fixed
 orthographic views with a z-180 roll and no y-flip, rasterizes them through
 ``rasterize_with_attributes`` (K2 and the barycentric interpolation by
-default), samples the eye mask and the neural texture at the interpolated
-(u, v), and sums the two side views. As in the reference's 'debug' block,
+default; the constructor selects the rasterizer as the flagship's does),
+samples the eye mask and the neural texture at the interpolated (u, v),
+and sums the two side views. As in the reference's 'debug' block,
 only the front view's alpha is kept, so only the front view's texture
 reaches the planes. There is no ``fill_mouth``, no mouth StyleUNet and no
 neural blending, so ``load_jax_params(strict=True)`` takes the JAX
@@ -71,8 +72,9 @@ class TriPlaneTextureGenerator(TriPlaneGenerator):
         res = self.uv_resolution
         rendering = rasterize_with_attributes(
             self.project_orth(v), self.faces, self.face_uvcoords[None], res,
-            patch=self.rasterizer_patch,
-            impl=self.rasterizer_impl)                  # (V*N, 4, R, R)
+            patch=self.rasterizer_patch, face_chunk=self.rasterizer_face_chunk,
+            impl=self.rasterizer_impl,
+            tile_capacity=self.rasterizer_tile_capacity)  # (V*N, 4, R, R)
         alpha = rendering[:, -1:].detach()
         # the texture grid keeps its gradient (reference triplane.py:168);
         # the eye mask is sampled at the same grid without one. The views

@@ -1,8 +1,10 @@
-"""Look-at camera poses (y-up sphere) and intrinsics.
+"""Camera pose samplers (y-up sphere) and intrinsics.
 
 Counterpart of next3d_tpu/render/camera_utils.py (reference:
-camera_utils.py LookAtPoseSampler :58-86, create_cam2world_matrix :118-137,
-FOV_to_intrinsics :140-149).
+camera_utils.py GaussianCameraPoseSampler :38-55, LookAtPoseSampler
+:58-86, UniformCameraPoseSampler :99-116, create_cam2world_matrix
+:118-137, FOV_to_intrinsics :140-149). The jitter is drawn from an explicit
+``torch.Generator``; the poses are made on ``device``, the card by default.
 """
 
 from __future__ import annotations
@@ -36,22 +38,80 @@ def create_cam2world_matrix(forward_vector, origin):
     return translation @ rotation
 
 
-def lookat_pose(horizontal_mean, vertical_mean, lookat_position, radius=1,
-                batch_size=1, device='cuda'):
-    """LookAtPoseSampler.sample without jitter (reference:
-    camera_utils.py:68-86): (batch_size, 4, 4) cam2world on ``device`` (the
-    card unless the caller asks for the CPU)."""
-    h = torch.full((batch_size, 1), float(horizontal_mean), device=device)
-    v = torch.full((batch_size, 1), float(vertical_mean), device=device)
+def _origins_from_angles(h, v, radius):
+    """Camera origins (N, 3) on the sphere of ``radius`` at yaw ``h`` and
+    pitch ``v``, each (N, 1): the deterministic core of the samplers,
+    rounded as the JAX package's (JAX :36-43)."""
     v = v.clamp(1e-5, math.pi - 1e-5)
+    theta = h
     phi = torch.arccos(1 - 2 * (v / math.pi))
-    origins = radius * torch.cat([
-        torch.sin(phi) * torch.cos(math.pi - h),
-        torch.cos(phi),
-        torch.sin(phi) * torch.sin(math.pi - h)], dim=1)
+    ox = radius * torch.sin(phi) * torch.cos(math.pi - theta)
+    oz = radius * torch.sin(phi) * torch.sin(math.pi - theta)
+    oy = radius * torch.cos(phi)
+    return torch.cat([ox, oy, oz], dim=1)
+
+
+def _angles(horizontal_mean, vertical_mean, batch_size, horizontal_stddev,
+            vertical_stddev, generator, device, draw):
+    """(h, v), each (batch_size, 1) on ``device``: the means, or with a
+    ``generator`` and a stddev the means plus stddev times ``draw``, drawn
+    on the generator's device."""
+    shape = (batch_size, 1)
+    if generator is not None and (horizontal_stddev or vertical_stddev):
+        h = draw(shape, generator) * horizontal_stddev + horizontal_mean
+        v = draw(shape, generator) * vertical_stddev + vertical_mean
+        return h.to(device), v.to(device)
+    return (torch.full(shape, float(horizontal_mean), device=device),
+            torch.full(shape, float(vertical_mean), device=device))
+
+
+def _normal(shape, generator):
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
+def _uniform(shape, generator):
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) * 2 - 1
+
+
+def lookat_pose(horizontal_mean, vertical_mean, lookat_position, radius=1,
+                batch_size=1, horizontal_stddev=0, vertical_stddev=0,
+                generator=None, device='cuda'):
+    """LookAtPoseSampler.sample (reference: camera_utils.py:68-86):
+    (batch_size, 4, 4) cam2world on ``device`` (the card unless the caller
+    asks for the CPU), looking at ``lookat_position``; with a
+    ``torch.Generator`` and a stddev, the angles are jittered by normal
+    draws."""
+    h, v = _angles(horizontal_mean, vertical_mean, batch_size,
+                   horizontal_stddev, vertical_stddev, generator, device,
+                   _normal)
+    origins = _origins_from_angles(h, v, radius)
     lookat = torch.as_tensor(lookat_position, dtype=torch.float32,
                              device=device).expand_as(origins)
     return create_cam2world_matrix(normalize_vecs(lookat - origins), origins)
+
+
+def gaussian_pose(horizontal_mean, vertical_mean, radius=1, batch_size=1,
+                  horizontal_stddev=0, vertical_stddev=0, generator=None,
+                  device='cuda'):
+    """GaussianCameraPoseSampler.sample (reference: camera_utils.py:38-55;
+    JAX :63-68): ``lookat_pose`` at the origin."""
+    return lookat_pose(horizontal_mean, vertical_mean, [0., 0., 0.], radius,
+                       batch_size, horizontal_stddev, vertical_stddev,
+                       generator, device)
+
+
+def uniform_pose(horizontal_mean, vertical_mean, radius=1, batch_size=1,
+                 horizontal_stddev=0, vertical_stddev=0, generator=None,
+                 device='cuda'):
+    """UniformCameraPoseSampler.sample (reference: camera_utils.py:99-116;
+    JAX :71-83): the angles jittered by uniform draws in [-stddev,
+    stddev), the camera looking at the origin."""
+    h, v = _angles(horizontal_mean, vertical_mean, batch_size,
+                   horizontal_stddev, vertical_stddev, generator, device,
+                   _uniform)
+    origins = _origins_from_angles(h, v, radius)
+    return create_cam2world_matrix(normalize_vecs(-origins), origins)
 
 
 def fov_to_intrinsics(fov_degrees):

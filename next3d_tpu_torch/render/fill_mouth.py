@@ -7,12 +7,14 @@ renderer.py:583-601). The flood runs as rounds of directional sweeps, each
 propagating reachability along every row and column in both directions with
 ``cumsum``/``cummax``, until the reachable count stops changing; the result
 is exact for any topology. The loop condition reads the count on the host,
-one sync per round.
+one sync per round. ``fill_mouth_exact`` is the JAX package's fixed-round
+dilation flood, kept to cross-check it.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 _INT32_MIN = torch.iinfo(torch.int32).min
 
@@ -61,3 +63,26 @@ def fill_mouth(images):
     seed[:, 0, 0] = True
     reachable = _flood_reachable(fillable, seed)
     return torch.where(reachable, a, torch.ones_like(a))[:, None]
+
+
+def fill_mouth_exact(images, iters=None):
+    """Single-resolution dilation flood (JAX :102-135), an independent
+    formulation for cross-checking ``fill_mouth`` in tests: from corner
+    (0, 0), if it is fillable, ``iters`` (default H + W) rounds of a
+    4-neighbour dilation kept inside the fillable pixels."""
+    B, C, H, W = images.shape
+    a = images[:, 0]
+    fillable = (a * 255.0 <= 254.0).to(a.dtype)
+    if iters is None:
+        iters = H + W
+    m = torch.zeros_like(fillable)
+    m[..., 0, 0] = fillable[..., 0, 0]
+    for _ in range(iters):
+        up = F.pad(m[..., 1:, :], (0, 0, 0, 1))
+        down = F.pad(m[..., :-1, :], (0, 0, 1, 0))
+        left = F.pad(m[..., :, 1:], (0, 1))
+        right = F.pad(m[..., :, :-1], (1, 0))
+        dilated = torch.maximum(m, torch.maximum(torch.maximum(up, down),
+                                                 torch.maximum(left, right)))
+        m = torch.minimum(dilated, fillable)
+    return torch.where(m > 0.5, a, torch.ones_like(a))[:, None]

@@ -53,6 +53,20 @@ def sample_from_planes(plane_features, coordinates, box_warp,
 FUSED_PRECISIONS = ('bf16', 'highest')
 
 
+def sample_from_3dgrid(grid, coordinates):
+    """Trilinear samples of a dense voxel grid (reference renderer.py
+    :74-87; JAX :78-111). grid (1 or N, C, D, H, W); coordinates (N, M, 3)
+    in [-1, 1], x along W, y along H, z along D. Returns (N, M, C), zero
+    outside the grid (``F.grid_sample``, align_corners=False, zeros
+    padding)."""
+    N, M, _ = coordinates.shape
+    grid = grid.expand(N, *grid.shape[1:])
+    out = F.grid_sample(grid, coordinates.reshape(N, 1, 1, M, 3),
+                        mode='bilinear', padding_mode='zeros',
+                        align_corners=False)           # (N, C, 1, 1, M)
+    return out.reshape(N, grid.shape[1], M).transpose(1, 2)
+
+
 def check_fused_options(planes, options):
     """Raise ``ValueError`` for the ``fused_*`` options and planes
     (N, 3, C, H, W) that JAX's fused path refuses: planes that are not

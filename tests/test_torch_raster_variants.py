@@ -29,6 +29,7 @@ from next3d_tpu_torch.ops.raster import (rasterize_binned,
                                          rasterize_binned_uv16_plain)
 from next3d_tpu_torch.ops.raster_zbuffer import (fma32, rasterize_zbuffer,
                                                  rasterize_zbuffer_plain)
+from next3d_tpu_torch.render import rasterizer as port_rasterizer
 from next3d_tpu_torch.render.rasterizer import (interpolate_face_attributes,
                                                 rasterize_uv_with_alpha,
                                                 rasterize_with_attributes)
@@ -379,8 +380,9 @@ def test_interpolation_gradient_matches_jax():
 
 @pytest.mark.usefixtures('one_thread')
 def test_impl_names():
-    """The JAX package's rasterizer_impl names: each ported one reaches its
-    kernel's plain version on the CPU; 'tiled' and 'scatter' raise."""
+    """The JAX package's rasterizer_impl names: each kernel's name reaches
+    its kernel's plain version on the CPU; 'tiled' and 'scatter' reach the
+    port's rasterize_mesh_tiled and rasterize_mesh."""
     verts, faces, attrs, H = _head_views(11)
     v, f, a = t(verts), t(faces), t(attrs)
     k1 = rasterize_uv_with_alpha(v, f, a, H, impl='pallas_binned')
@@ -392,6 +394,7 @@ def test_impl_names():
     with_attrs = rasterize_with_attributes(v, f, a, H, impl='pallas_binned')
     assert torch.equal(with_attrs[:, 2] > 0,
                        rasterize_binned_plain(v, f, H)[0] >= 0)
-    for impl in ('tiled', 'scatter'):
-        with pytest.raises(ValueError, match='ROADMAP.md'):
-            rasterize_uv_with_alpha(v, f, a, H, impl=impl)
+    for impl, fn in (('tiled', port_rasterizer.rasterize_mesh_tiled),
+                     ('scatter', port_rasterizer.rasterize_mesh)):
+        got = rasterize_uv_with_alpha(v, f, a, H, impl=impl)
+        assert torch.equal(got[:, 2] > 0, fn(v, f, H)[0] >= 0)

@@ -124,7 +124,9 @@ def test_port_imports_no_jax():
     """Every module of the port (its CLIs and its training path included,
     the augment pipe and the video dataset too, the checkpoint readers,
     the metrics, the bench, the data parallelism, the SG3 and EG3D
-    families, the cross-section and the registry), and each generator
+    families, the cross-section, the registry, the 'tiled' and 'scatter'
+    rasterizers, the dataset tools and their commands, the logger and the
+    profiling helpers), and each generator
     built from it, pull in neither JAX nor any module of
     the JAX package, nor optax, click or PIL, which the card machine
     lacks."""
@@ -164,7 +166,15 @@ def test_port_imports_no_jax():
         "'next3d_tpu_torch.nn.stylegan3', "
         "'next3d_tpu_torch.models.triplane_eg3d', "
         "'next3d_tpu_torch.render.crosssection', "
-        "'next3d_tpu_torch.utils.registry'} "
+        "'next3d_tpu_torch.utils.registry', "
+        "'next3d_tpu_torch.render.rasterizer', "
+        "'next3d_tpu_torch.data.preprocess', "
+        "'next3d_tpu_torch.data.image_prep', "
+        "'next3d_tpu_torch.data.lmdb_reader', "
+        "'next3d_tpu_torch.cli.dataset_tool', "
+        "'next3d_tpu_torch.cli.preprocess_cli', "
+        "'next3d_tpu_torch.utils.logger', "
+        "'next3d_tpu_torch.utils.profiling'} "
         "<= set(names), names\n"
         "from next3d_tpu_torch.models import (triplane_next3d,"
         " triplane_texture)\n"
