@@ -170,14 +170,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      record in metric-fid256_full.jsonl (the hook prints a failure and
      trains on, so the record decides), finite, with its launches. It ends
      with a {"metrics": ...} line.
- 18. bf16 training, remat and the bench: (a) K4's bf16 backward (the
-     float32 backward kernel, its result cast to bf16 once; the autograd
-     Function that bf16 planes take under grad mode) at phase 4's shapes,
-     bf16 planes (4, 3, 256, 256, 32), against the plain version's
-     autograd gradient of the same bf16 planes within one bf16 ulp
-     (BF16_ULP of each value) plus 1e-5 of the largest gradient (the two
-     add in float32 in different orders before the cast), timed beside the
-     plain backward and grid_sampler_2d_backward on the planes upcast;
+ 18. bf16 training, remat and the bench: (a) K4's bf16 backward, the
+     binned kernels of csrc/triplane_backward_binned.cu (the autograd
+     Function's backward for bf16 planes under grad mode), planes' gradient
+     (4, 3, 256, 256, 32) bf16, on phase 13's point sets: the coarse,
+     jittered and fine-pass points, one texel, and the coarse points
+     shuffled; each against the plain version (the float32 plain backward
+     cast to bf16) within one bf16 ulp (BF16_ULP of each value) plus 1e-5
+     of the largest gradient (the two add in float32 in different orders
+     before the rounding), its tile counts equal to ops/triplane.py
+     bin_counts, timed (CUDA events, profiler device time, each stage's
+     device time) beside the chain it replaces (the float32 backward
+     kernel and a cast), the plain version and grid_sampler_2d_backward on
+     the planes upcast, with its entries, duplicates, largest tile and
+     chunks logged; then the coarse set through the autograd Function
+     against the plain version's autograd gradient of the same bf16
+     planes, with one launch;
      (b) one Gmain of phase 6's flagship at batch 4, fp32, random noise and
      depths from a device generator of one seed, with remat_synthesis off
      and on (each run twice, the second timed): the losses within
@@ -291,11 +299,17 @@ run. It adds device_ms, kernel_device_ms, taps, atomics, parent_ms and
 parent_device_ms (null without --parent), and 'sets': each point set's
 numbers.
 
-K4's bf16 backward (K4b_bf16) carries the same keys, from phase 18 (a):
-its bound is the bytes of the output gradient and the points read once and
-the bf16 gradient written once, its library call grid_sampler_2d_backward
-on the channels-first planes upcast, its plain_ms the plain backward and
-the cast, and its launches those of phase 18's bf16 train bench.
+K4's bf16 backward (K4b_bf16) carries the same keys, from phase 18 (a)'s
+coarse set: its bound is the bytes of the output gradient and the points
+read once and the bf16 gradient written once, its library call
+grid_sampler_2d_backward on the channels-first planes upcast, its plain_ms
+the plain backward and the cast, and its launches those of phase 18's bf16
+train bench. It adds device_ms, kernel_device_ms (the memset left out),
+stage_device_ms (each stage's mean over the profiled_calls that the trace
+kept), chain_ms and
+chain_device_ms (the float32 kernel and the cast it replaces), the
+binning's counts (entries, duplicates, largest_tile, chunks, split_tiles),
+taps, and 'sets': each point set's numbers.
 
 K4's bf16 instance (K4bf16) carries the same keys, from phase 14: its
 bound is the bf16 planes, the points and the float32 output, its launches
@@ -345,7 +359,8 @@ from next3d_tpu_torch.bench import G_KWARGS, RENDER_KW_FFHQ, card_line
 SEED = 0
 CSRC = 'next3d_tpu_torch/csrc/'
 LIBRARIES = ('raster_binned_uv', 'raster_binned_prep', 'triplane_sample',
-             'raster_zbuffer', 'gather_row_blocks')
+             'triplane_backward_binned', 'raster_zbuffer',
+             'gather_row_blocks')
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12   # H100 SXM float32 outside the tensor cores
 # float32 operations a (pixel, candidate) pair needs in the binned kernels:
@@ -402,11 +417,10 @@ def time_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=10, kernel=None):
-    """Mean device time of ``fn()`` in ms: the summed durations of the
-    kernels and memsets it ran (only those whose name holds ``kernel``,
-    if given), from a torch.profiler trace of ``reps`` calls (time the
-    device spent idle between them is left out)."""
+def device_times(fn, reps=10):
+    """The device durations in ms of each kernel (and memset) that
+    ``reps`` calls of ``fn()`` ran, by name, from a torch.profiler trace
+    (time the device spent idle between them is left out)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -414,9 +428,20 @@ def device_ms(fn, reps=10, kernel=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and (kernel is None or kernel in e.name)) / reps / 1e3
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times.setdefault(e.name, []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    return times
+
+
+def device_ms(fn, reps=10, kernel=None):
+    """Mean device time of ``fn()`` in ms: the summed durations of the
+    kernels and memsets it ran (only those whose name holds ``kernel``,
+    if given)."""
+    return sum(sum(ms) for name, ms in device_times(fn, reps).items()
+               if kernel is None or kernel in name) / reps
 
 
 def nbytes(*tensors):
@@ -2450,70 +2475,177 @@ def reenact_rates(G32, Gbf, z, c, mesh, lms, device, card):
     return rates
 
 
-def check_k4_bf16_backward(device):
-    """Phase 18 (a): K4's bf16 backward at phase 4's shapes against the
-    plain version's autograd gradient of the same bf16 planes."""
+# phase 18 (a): the binned bf16 backward's stages, by a piece of their
+# kernel's name in a profiler trace
+BINNED_STAGES = (('memset', 'Memset'), ('count', 'bwd_bin_count_kernel'),
+                 ('scan', 'bwd_bin_scan_kernel'),
+                 ('place', 'bwd_bin_place_kernel'),
+                 ('resolve', 'bwd_bin_resolve_kernel'),
+                 ('merge', 'bwd_bin_merge_kernel'))
+
+
+def check_k4_bf16_backward(device, fine):
+    """Phase 18 (a): K4's bf16 backward, the binned kernels, on phase 13's
+    point sets of 4 images ((a) coarse, (b) jittered, (c) ``fine``, the
+    fine pass of the flagship's forward at batch 4, (d) one texel, and (a)
+    shuffled), planes' gradient (4, 3, 256, 256, 32) bf16: each against the
+    plain version within one bf16 ulp plus 1e-5 of the largest gradient,
+    its tile counts against bin_counts, timed beside the chain it replaces,
+    the plain version and grid_sampler_2d_backward; then set (a) through
+    the autograd Function. Returns set (a)'s numbers, with every set's
+    under 'sets'."""
     import numpy as np
-    from next3d_tpu_torch.ops.triplane import (channels_last, merge_plain,
+    from next3d_tpu_torch.ops import triplane
+    from next3d_tpu_torch.ops.triplane import (_backward_bf16_cuda,
+                                               bin_counts, channels_last,
+                                               kernel_positions, merge_plain,
                                                project_onto_planes,
                                                triplane_sample,
                                                triplane_sample_backward,
+                                               triplane_sample_backward_bf16,
                                                triplane_sample_backward_plain,
                                                triplane_sample_plain)
     from next3d_tpu_torch.render.ray_sampler import sample_rays
     from next3d_tpu_torch.render.renderer import sample_stratified
     g = torch.Generator(device=device).manual_seed(SEED)
-    raw = torch.randn(4, 3, 32, 256, 256, generator=g, device=device)
-    planes = channels_last(raw, torch.bfloat16)
     c = ffhq_camera(4, device)
     ro, rd = sample_rays(c[:, :16].reshape(-1, 4, 4),
                          c[:, 16:25].reshape(-1, 3, 3), 64)
-    depths = sample_stratified(None, ro, 2.25, 3.3, 48)
-    coords = (ro[:, :, None] + depths * rd[:, :, None]).reshape(4, -1, 3)
-    M = coords.shape[1]
-    grad_out = torch.randn(4, 3, M, 32, generator=g, device=device)
+    points = {}
+    for name, gen in (('coarse', None), ('jittered', g)):
+        depths = sample_stratified(gen, ro, 2.25, 3.3, 48)
+        points[name] = (ro[:, :, None] + depths * rd[:, :, None]).reshape(
+            4, -1, 3)
+    points['fine'] = fine
+    M = points['coarse'].shape[1]
+    points['one_cell'] = 0.1 + 1e-3 * torch.rand(4, M, 3, generator=g,
+                                                 device=device)
+    perm = torch.randperm(M, generator=g, device=device)
+    points['coarse_shuffled'] = points['coarse'][:, perm].contiguous()
+    feats = torch.zeros(12, 32, 256, 256, device=device)
+    sets = {}
+    for name, coords in points.items():
+        M = coords.shape[1]
+        grad_out = torch.randn(4, 3, M, 32, generator=g, device=device)
+        args = (grad_out, coords, 1.0, 256, 256)
+        got, workspace = _backward_bf16_cuda(*args)
+        want = triplane_sample_backward_plain(*args).to(torch.bfloat16)
+        want64 = triplane_sample_backward_plain(grad_out.double(),
+                                                *args[1:])
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        scale = float(want.float().abs().max())
+        within = bool((err <= BF16_ULP * want.float().abs()
+                       + 1e-5 * scale).all())
+        err64 = float((got.double() - want64).abs().max())
+        # the kernels' tile counts against the model's
+        counts = bin_counts(coords, 1.0, 256, 256)
+        starts = workspace[2:counts.numel() + 3].long()
+        same_counts = torch.equal(starts[1:] - starts[:-1], counts)
+        ix, iy = kernel_positions(coords, 1.0, 256, 256)
+        pairs = int(((ix >= -1) & (ix < 256) & (iy >= -1) & (iy < 256))
+                    .sum())
+        _, _, _, taps = merge_plain(*args)
+        grid = project_onto_planes(2.0 * coords)[:, None]       # box_warp 1
+        grad_cf = grad_out.reshape(12, M, 32).permute(0, 2, 1)[:, :, None]
+
+        def binned():
+            return triplane_sample_backward_bf16(*args)
+
+        def chain():
+            return triplane_sample_backward(*args).to(torch.bfloat16)
+
+        # in turns: chain, binned, binned, chain
+        chain_ms = [time_ms(chain)]
+        ms = [time_ms(binned), time_ms(binned)]
+        chain_ms.append(time_ms(chain))
+        # each stage (and each kernel of the chain) runs once a call: its
+        # mean over the calls the trace kept (a trace of a long run can drop
+        # some; 'profiled_calls' says how many it kept of 10)
+        stages = device_times(binned)
+        stage_ms = {stage: sum(statistics.mean(t) for k, t in stages.items()
+                               if part in k)
+                    for stage, part in BINNED_STAGES}
+        profiled = min(len(t) for k, t in stages.items()
+                       if 'bwd_bin_resolve_kernel' in k)
+        out = dict(
+            max_abs_err=float(err.max()), max_abs_err_float64=err64,
+            largest_gradient=scale,
+            differing=float((err > 0).float().mean()),
+            ms=statistics.mean(ms), ms_runs=ms,
+            device_ms=sum(stage_ms.values()), stage_device_ms=stage_ms,
+            profiled_calls=profiled,
+            kernel_device_ms=sum(t for k, t in stage_ms.items()
+                                 if k != 'memset'),
+            chain_ms=statistics.mean(chain_ms), chain_ms_runs=chain_ms,
+            chain_device_ms=sum(statistics.mean(t)
+                                for t in device_times(chain).values()),
+            plain_ms=time_ms(lambda: triplane_sample_backward_plain(
+                *args).to(torch.bfloat16), reps=3),
+            library_ms=time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                grad_cf, feats, grid, 0, 0, False, [True, False])),
+            entries=int(counts.sum()), duplicates=int(counts.sum()) - pairs,
+            largest_tile=int(counts.max()), chunks=int(workspace[0]),
+            split_tiles=int(workspace[1]), taps=taps,
+            **bound(nbytes(grad_out, coords, got), taps * 32 * 2))
+        out['faster_than_chain'] = out['ms'] < out['chain_ms']
+        sets[name] = out
+        log(f'K4 bf16 backward, {name} points, planes\' gradient (4, 3, 256, '
+            f'256, 32) bf16, {M} points an image: max-abs {err.max():.3g} '
+            f'against the plain version cast (largest {scale:.3g}; '
+            f'{100 * out["differing"]:.3f}% of the values differ; '
+            f'{err64:.3g} against it in float64), within one bf16 ulp + '
+            f'1e-5 of the largest: {within}; tile counts equal to '
+            f'bin_counts: {same_counts}; binned {out["ms"]:.4f} ms '
+            f'({", ".join(f"{t:.4f}" for t in ms)}; device '
+            f'{out["device_ms"]:.4f} over {profiled} profiled calls: '
+            + ', '.join(f'{k} {t:.4f}' for k, t in stage_ms.items())
+            + f'), the chain it replaces (float32 kernel and cast) '
+            f'{out["chain_ms"]:.4f} ms ('
+            f'{", ".join(f"{t:.4f}" for t in chain_ms)}; device '
+            f'{out["chain_device_ms"]:.4f}), plain {out["plain_ms"]:.3f} '
+            f'ms, grid_sampler_2d_backward on the planes upcast '
+            f'{out["library_ms"]:.3f} ms, bound {out["bound_ms"]:.4f} ms by '
+            f'{out["bound_by"]}; {out["entries"]} entries in '
+            f'{counts.numel()} tiles ({out["duplicates"]} duplicates of '
+            f'{pairs} (point, plane) pairs), largest tile '
+            f'{out["largest_tile"]}, {out["chunks"]} chunks, '
+            f'{out["split_tiles"]} split tiles; {taps} in-range taps')
+        if not (within and same_counts and np.isfinite(scale)
+                and scale > 0):
+            raise RuntimeError(f'K4\'s bf16 backward disagrees on {name}')
+        del grad_out, got, want, want64, err, grid, grad_cf, workspace
+
+    # set (a) through the autograd Function, one launch, against the plain
+    # version's autograd gradient of the same bf16 planes
+    raw = torch.randn(4, 3, 32, 256, 256, generator=g, device=device)
+    planes = channels_last(raw, torch.bfloat16)
+    coords = points['coarse']
+    grad_out = torch.randn(4, 3, coords.shape[1], 32, generator=g,
+                           device=device)
     grads = []
+    before = triplane.triplane_sample_backward_bf16.launches
     with torch.enable_grad():
         for sample in (triplane_sample, triplane_sample_plain):
             p = planes.clone().requires_grad_()
             sample(p, coords, 1.0).backward(grad_out)
             grads.append(p.grad)
+    launches = triplane.triplane_sample_backward_bf16.launches - before
     got, want = grads
     torch.cuda.synchronize()
-    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
-        raise RuntimeError(f'K4 bf16 backward: {got.dtype}, {want.dtype}')
     err = (got.float() - want.float()).abs()
     scale = float(want.float().abs().max())
     within = bool((err <= BF16_ULP * want.float().abs()
                    + 1e-5 * scale).all())
-    args = (grad_out, coords, 1.0, 256, 256)
-    feats = raw.reshape(12, 32, 256, 256)
-    grid = project_onto_planes(2.0 * coords)[:, None]       # box_warp 1
-    grad_cf = grad_out.reshape(12, M, 32).permute(0, 2, 1)[:, :, None]
-    _, _, _, taps = merge_plain(*args)
-    out = dict(
-        max_abs_err=float(err.max()), largest_gradient=scale,
-        differing=float((err > 0).float().mean()),
-        ms=time_ms(lambda: triplane_sample_backward(
-            *args, 'launches_bf16').to(torch.bfloat16)),
-        plain_ms=time_ms(lambda: triplane_sample_backward_plain(
-            *args).to(torch.bfloat16), reps=3),
-        library_ms=time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-            grad_cf, feats, grid, 0, 0, False, [True, False])),
-        taps=taps, **bound(nbytes(grad_out, coords, got), taps * 32 * 2))
-    log(f'K4 bf16 backward, planes\' gradient (4, 3, 256, 256, 32) bf16, '
-        f'{M} points an image: max-abs {out["max_abs_err"]:.3g} against the '
-        f'plain version\'s autograd gradient (largest {scale:.3g}; '
-        f'{100 * out["differing"]:.3f}% of the values differ), within one '
-        f'bf16 ulp + 1e-5 of the largest: {within}; kernel and cast '
-        f'{out["ms"]:.4f} ms, plain {out["plain_ms"]:.3f} ms, '
-        f'grid_sampler_2d_backward on the planes upcast '
-        f'{out["library_ms"]:.3f} ms, bound {out["bound_ms"]:.4f} ms by '
-        f'{out["bound_by"]}')
-    if not (within and np.isfinite(scale) and scale > 0):
-        raise RuntimeError('K4\'s bf16 backward disagrees with its plain '
-                           'version')
-    return out
+    log(f'K4 bf16 backward through the autograd Function, coarse points: '
+        f'{got.dtype}, max-abs {err.max():.3g} against the plain version\'s '
+        f'autograd gradient (largest {scale:.3g}), within: {within}; '
+        f'binned launches {launches}')
+    if not (got.dtype == want.dtype == torch.bfloat16 and within
+            and launches == 1):
+        raise RuntimeError('K4\'s bf16 backward through autograd disagrees '
+                           'or did not launch the binned kernels')
+    return dict(sets['coarse'], sets=sets)
 
 
 def check_remat(G, mesh, lms, device, card):
@@ -3930,8 +4062,8 @@ def main():
         launches.update(K1=counts['K1'], K4=counts['K4'])
         if min(launches.values()) <= 0:
             raise RuntimeError('a kernel of the main path never launched')
-        stats['K4b'] = check_k4_backward(
-            device, fine_points(lambda: forward(4)), parent)
+        fine = fine_points(lambda: forward(4))
+        stats['K4b'] = check_k4_backward(device, fine, parent)
 
         ws = G.mapping(z[1], c[1], truncation_psi=0.7, truncation_cutoff=14)
         textures, static = G.build_identity(ws, noise_mode='const')
@@ -4063,7 +4195,8 @@ def main():
         finished('17')
 
         t0 = time.time()
-        stats['K4b_bf16'] = check_k4_bf16_backward(device)
+        stats['K4b_bf16'] = check_k4_bf16_backward(device, fine)
+        del fine
         remat = check_remat(G, mesh, head_lms, device, card)
         # the bench's processes take the card's memory: free this one's
         # cache
@@ -4116,8 +4249,10 @@ def main():
         # gather of render/renderer.py:256 sample_from_planes
         'K4b': ('triplane_sample_backward', 'triplane_sample.cu',
                 'next3d_tpu/ops/pallas_triplane.py:177'),
-        # the same kernel for bf16 planes, its result cast to bf16 once
-        'K4b_bf16': ('triplane_sample_backward', 'triplane_sample.cu',
+        # for bf16 planes: the points binned by plane tile, each texel
+        # written once as bf16
+        'K4b_bf16': ('triplane_sample_backward_bf16',
+                     'triplane_backward_binned.cu',
                      'next3d_tpu/ops/pallas_triplane.py:177'),
         # the same TPU kernel on planes stored in bf16 (gather_bf16, JAX
         # render/renderer.py:50-65)

@@ -146,7 +146,7 @@ def launch_counts():
             'K4': triplane.triplane_sample.launches,
             'K4bf16': triplane.triplane_sample.launches_bf16,
             'K4b': triplane.triplane_sample_backward.launches,
-            'K4b_bf16': triplane.triplane_sample_backward.launches_bf16,
+            'K4b_bf16': triplane.triplane_sample_backward_bf16.launches,
             'K5': raster_zbuffer.rasterize_zbuffer.launches}
 
 

@@ -32,6 +32,9 @@ SIGNATURES = {
         entry: [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P]
         for entry in ('triplane_sample', 'triplane_sample_bf16',
                       'triplane_sample_backward')},
+    'triplane_backward_binned': {
+        'triplane_backward_binned': [_P] * 7 + [_I] * 7
+        + [ctypes.c_float, _P]},
     'raster_binned_uv': {
         entry: [_P] * 5 + [_I] * 4 + [_P]
         for entry in ('raster_binned_uv', 'raster_binned_uv16',

@@ -19,22 +19,24 @@ permutes and casts in one pass, the kernel reads 64 B a tap, and it
 computes the weights and the 4-tap sums in float32 and writes float32, as
 the plain version does on the planes upcast (``triplane_sample_plain``).
 The JAX package rounds each product and the sum in bf16 instead. Its
-launches are counted apart, in ``triplane_sample.launches_bf16``. Its
-backward is the float32 backward kernel below, which reads only the output
-gradient and the points, never the planes: it accumulates in float32 and
-its result is cast to bf16 once (as autograd of the plain version's upcast
-does). Those launches are counted apart too, in
-``triplane_sample_backward.launches_bf16``. The JAX package's gradient of
-its bf16 gather adds in bf16 instead (the VJP of the gather works in the
-table's type).
+launches are counted apart, in ``triplane_sample.launches_bf16``. Their
+backward is ``triplane_sample_backward_bf16``, the kernels of
+``csrc/triplane_backward_binned.cu``: the points binned by 16 x 16 plane
+tile, each tile's float32 sums kept in shared memory and written once as
+bf16, each rounded once (as autograd of the plain version's upcast rounds
+them). Its launches are counted in
+``triplane_sample_backward_bf16.launches``. ``bin_plain`` models the
+binning (the same tiles, counts and chunks) and ``assemble_plain`` its
+merge. The JAX package's gradient of its bf16 gather adds in bf16 instead
+(the VJP of the gather works in the table's type).
 
 On the card, when grad mode is on and the planes require grad, the forward
-runs inside an autograd function whose backward is the second kernel of
-that file (``triplane_sample_backward``). It adds each tap's bilinear
-weight times the output gradient into zero-filled channels-last
-``grad_planes``, and merges taps before its atomics: a group of lanes
-walks a run of ``RUN`` consecutive points and flushes a cell's taps once
-the cell changes. ``merge_plain`` models the merge (the tests and
+runs inside an autograd function whose backward, for float32 planes, is
+the second kernel of that file (``triplane_sample_backward``). It adds
+each tap's bilinear weight times the output gradient into zero-filled
+channels-last ``grad_planes``, and merges taps before its atomics: a group
+of lanes walks a run of ``RUN`` consecutive points and flushes a cell's
+taps once the cell changes. ``merge_plain`` models the merge (the tests and
 ``chip_smoke.py`` use it; no forward or backward path calls it). The
 atomics land in no fixed order, so the sums are not bit-reproducible. The
 plain version, ``triplane_sample_backward_plain``, is an ``index_add_`` of
@@ -243,10 +245,12 @@ def merge_plain(grad_out, coordinates, box_warp, H, W, run=RUN):
     return index, torch.cat(grad), len(index), taps
 
 
-def _backward_cuda(grad_out, coordinates, box_warp, H, W, counter):
-    N, _, M, C = grad_out.shape
-    if C != C_KERNEL:
-        raise ValueError(f'the kernel takes {C_KERNEL} channels, not {C}')
+def _check_backward(grad_out, coordinates):
+    """What both backward kernels take: 32 channels, contiguous float32
+    grad_out and coordinates on one device, grad_out 16-byte aligned."""
+    if grad_out.shape[-1] != C_KERNEL:
+        raise ValueError(f'the kernel takes {C_KERNEL} channels, not '
+                         f'{grad_out.shape[-1]}')
     for name, t in (('grad_out', grad_out), ('coordinates', coordinates)):
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != grad_out.device:
@@ -254,6 +258,11 @@ def _backward_cuda(grad_out, coordinates, box_warp, H, W, counter):
                              f'{grad_out.device}')
     if grad_out.data_ptr() % 16:
         raise ValueError('grad_out must be 16-byte aligned')
+
+
+def _backward_cuda(grad_out, coordinates, box_warp, H, W):
+    N, _, M, C = grad_out.shape
+    _check_backward(grad_out, coordinates)
     if max(N * 3 * H * W * C, grad_out.numel()) >= 2 ** 31:
         raise ValueError('the kernel indexes in 32 bits')
     grad = torch.zeros((N, 3, H, W, C), dtype=torch.float32,
@@ -262,29 +271,213 @@ def _backward_cuda(grad_out, coordinates, box_warp, H, W, counter):
                       grad_out.device, grad_out.data_ptr(),
                       coordinates.data_ptr(), grad.data_ptr(), N, M, H, W, C,
                       2.0 / box_warp)
-    setattr(triplane_sample_backward, counter,
-            getattr(triplane_sample_backward, counter) + 1)
+    triplane_sample_backward.launches += 1
     return grad
 
 
-def triplane_sample_backward(grad_out, coordinates, box_warp, H, W,
-                             counter='launches'):
+def triplane_sample_backward(grad_out, coordinates, box_warp, H, W):
     """grad_out (N, 3, M, C), coordinates (N, M, 3) -> the planes' float32
-    gradient (N, 3, H, W, C): the kernel on CUDA tensors, its launch
-    counted in ``counter``, the plain version on CPU tensors."""
+    gradient (N, 3, H, W, C): the kernel on CUDA tensors, the plain version
+    on CPU tensors."""
     if grad_out.is_cuda:
         return _backward_cuda(grad_out.contiguous(), coordinates, box_warp,
-                              H, W, counter)
+                              H, W)
     return triplane_sample_backward_plain(grad_out, coordinates, box_warp,
                                           H, W)
 
 
+# the binned backward's tile side and chunk cap
+# (csrc/triplane_backward_binned.cu kTile, kCap)
+TILE = 16
+CAP = 4096
+# the points of a block of the count and place kernels, and the tiles
+# whose counts it keeps in shared memory (kPointsPerBlock, kHist)
+POINTS_PER_BLOCK = 1024
+HIST = 4096
+
+
+def tile_grid(H, W, tile=TILE):
+    """Tiles a plane's side: (rows, columns)."""
+    return -(-H // tile), -(-W // tile)
+
+
+def work_bounds(N, M, H, W, tile=TILE, cap=CAP):
+    """The most work items (chunks) and split tiles (tiles of more than
+    ``cap`` entries) that any N x M points can make: a tile holds at most M
+    entries (a point once), and the entries are at most 12 N M (4 tiles a
+    point and plane), so the split tiles are at most 12 N M / (cap + 1) and
+    their chunks beyond the first fewer than 12 N M / cap."""
+    TY, TX = tile_grid(H, W, tile)
+    tiles = N * 3 * TY * TX
+    if M <= cap:
+        return tiles, 0
+    entries = 12 * N * M
+    return (tiles + min(tiles * (-(-M // cap) - 1), entries // cap),
+            min(tiles, entries // (cap + 1)))
+
+
+def _workspace_ints(tiles, items):
+    """The int32 words of the binned kernels' workspace
+    (csrc/triplane_backward_binned.cu Workspace): the totals, the tiles'
+    starts, cursors, split slots and split list, the resolve's work
+    counter, and the work list of (tile, chunk) pairs."""
+    return 4 * tiles + 4 + 2 * items
+
+
+def _tap_tiles(coordinates, box_warp, H, W, tile):
+    """Each (image, plane, point, tap), (N, 3, M, 4): whether it is inside
+    the plane, its tile ((image * 3 + plane) * rows + row) * columns +
+    column, its texel inside the tile (row-major) and its bilinear weight,
+    from the binned kernels' cells and weights."""
+    N, M, _ = coordinates.shape
+    x0, y0, wx1, wy1 = _cells(coordinates, box_warp, H, W)
+    xs = torch.stack([x0, x0 + 1, x0, x0 + 1], -1)
+    ys = torch.stack([y0, y0, y0 + 1, y0 + 1], -1)
+    inside = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    xs, ys = xs.clamp(min=0), ys.clamp(min=0)
+    TY, TX = tile_grid(H, W, tile)
+    image = torch.arange(N * 3, device=coordinates.device).reshape(N, 3, 1, 1)
+    tiles = (image * TY + ys // tile) * TX + xs // tile
+    texel = ys % tile * tile + xs % tile
+    ax, ay = wx1[..., None], wy1[..., None]
+    wx = torch.cat([1 - ax, ax, 1 - ax, ax], -1)
+    wy = torch.cat([1 - ay, 1 - ay, ay, ay], -1)
+    return inside, tiles, texel, wy * wx
+
+
+def _entries(inside, tiles, N, M):
+    """The lists' entries, one a (tile, point) that an in-range tap joins,
+    sorted by tile and then point: their keys tile * N * M + point, and
+    for each in-range tap the index of its entry."""
+    point = torch.arange(N * M, device=tiles.device).reshape(N, 1, M, 1)
+    return torch.unique((tiles * (N * M) + point)[inside], return_inverse=True)
+
+
+def bin_counts(coordinates, box_warp, H, W, tile=TILE):
+    """Each tile's count of entries, (N * 3 * rows * columns,): what the
+    binned kernels' count pass finds."""
+    N, M, _ = coordinates.shape
+    inside, tiles, _, _ = _tap_tiles(coordinates, box_warp, H, W, tile)
+    keys, _ = _entries(inside, tiles, N, M)
+    TY, TX = tile_grid(H, W, tile)
+    return torch.bincount(keys // (N * M), minlength=N * 3 * TY * TX)
+
+
+def bin_plain(grad_out, coordinates, box_warp, H, W, tile=TILE, cap=CAP):
+    """The binned backward's binning and resolve in plain torch, on any
+    device.
+
+    grad_out (N, 3, M, C), coordinates (N, M, 3). An entry is a (tile,
+    point) that an in-range tap of the point joins; a tile's entries, in
+    point order, are cut into chunks of ``cap`` (an empty tile is one empty
+    chunk), and each chunk adds the taps of its entries that fall inside
+    its tile. (The kernels list a tile's entries in no fixed order, so
+    their chunks of a split tile hold other entries than these; the tiles,
+    counts and chunk sizes are the same.)
+
+    Returns a dict: ``tile`` (K,) each chunk's tile, ``first`` (K + 1,)
+    its entries' bounds in ``point`` (E,), ``partial`` (K, tile, tile, C)
+    its sums in grad_out's type, ``counts`` each tile's entries, and for
+    every in-range tap that was added, ``tap`` its id ((image * 3 + plane)
+    * M + point) * 4 + tap, ``tap_chunk`` its chunk and ``tap_texel`` its
+    texel in the tile. ``assemble_plain`` gives the planes' gradient."""
+    N, _, M, C = grad_out.shape
+    inside, tiles, texel, weight = _tap_tiles(coordinates, box_warp, H, W,
+                                              tile)
+    keys, entry = _entries(inside, tiles, N, M)
+    device = grad_out.device
+    TY, TX = tile_grid(H, W, tile)
+    tile_of = keys // (N * M)
+    counts = torch.bincount(tile_of, minlength=N * 3 * TY * TX)
+    chunks = torch.where(counts > cap, (counts + cap - 1) // cap, 1)
+    first_chunk = torch.cumsum(chunks, 0) - chunks
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(len(keys), device=device) - start[tile_of]
+    entry_chunk = first_chunk[tile_of] + rank // cap
+    chunk_tile = torch.repeat_interleave(
+        torch.arange(len(counts), device=device), chunks)
+    nth = torch.arange(len(chunk_tile), device=device) \
+        - first_chunk[chunk_tile]
+    first = torch.cat([start[chunk_tile] + nth * cap,
+                       torch.tensor([len(keys)], device=device)])
+    tap_chunk = entry_chunk[entry]
+    tap_texel = texel[inside]
+    g = grad_out.reshape(N, 3, M, 1, C) * weight[..., None]
+    partial = torch.zeros(len(chunk_tile) * tile * tile, C,
+                          dtype=grad_out.dtype, device=device).index_add_(
+        0, tap_chunk * tile * tile + tap_texel, g[inside])
+    tap = torch.arange(inside.numel(), device=device).reshape(
+        inside.shape)[inside]
+    return dict(tile=chunk_tile, first=first, point=keys % (N * M),
+                partial=partial.reshape(-1, tile, tile, C), counts=counts,
+                tap=tap, tap_chunk=tap_chunk, tap_texel=tap_texel)
+
+
+def assemble_plain(binned, N, H, W):
+    """The merge in plain torch: ``bin_plain``'s partial tiles summed per
+    tile in chunk order and laid out as the planes' gradient (N, 3, H, W,
+    C), in the partials' type."""
+    partial = binned['partial']
+    _, tile, _, C = partial.shape
+    TY, TX = tile_grid(H, W, tile)
+    tiles = torch.zeros(N * 3 * TY * TX, tile, tile, C, dtype=partial.dtype,
+                        device=partial.device).index_add_(
+        0, binned['tile'], partial)
+    grad = tiles.reshape(N * 3, TY, TX, tile, tile, C).permute(
+        0, 1, 3, 2, 4, 5).reshape(N * 3, TY * tile, TX * tile, C)
+    return grad[:, :H, :W].reshape(N, 3, H, W, C)
+
+
+def _backward_bf16_cuda(grad_out, coordinates, box_warp, H, W):
+    """The binned kernels: the planes' bf16 gradient and the kernels'
+    workspace (its words 0 and 1 the work items and split tiles, 2 to
+    tiles + 2 the tiles' entry starts)."""
+    N, _, M, C = grad_out.shape
+    _check_backward(grad_out, coordinates)
+    TY, TX = tile_grid(H, W)
+    tiles = N * 3 * TY * TX
+    items, slots = work_bounds(N, M, H, W)
+    words = _workspace_ints(tiles, items)
+    if max(N * 3 * H * W * C, grad_out.numel(), 12 * N * M,
+           slots * TILE * TILE * C, words) >= 2 ** 31:
+        raise ValueError('the kernels index in 32 bits')
+    if M >= 2 ** 21:
+        raise ValueError('the kernels keep a point\'s index in its image in '
+                         '21 bits')
+    device = grad_out.device
+    workspace = torch.empty(words, dtype=torch.int32, device=device)
+    lists = torch.empty(-(-N * M // POINTS_PER_BLOCK) * (HIST + 1),
+                        dtype=torch.int32, device=device)
+    bins = torch.empty(12 * N * M, dtype=torch.int32, device=device)
+    scratch = torch.empty(slots * TILE * TILE * C, dtype=torch.float32,
+                          device=device)
+    grad = torch.empty((N, 3, H, W, C), dtype=torch.bfloat16, device=device)
+    cuda_build.launch('triplane_backward_binned', 'triplane_backward_binned',
+                      device, grad_out.data_ptr(), coordinates.data_ptr(),
+                      grad.data_ptr(), workspace.data_ptr(), lists.data_ptr(),
+                      bins.data_ptr(), scratch.data_ptr(), N, M, H, W, C,
+                      items, slots, 2.0 / box_warp)
+    triplane_sample_backward_bf16.launches += 1
+    return grad, workspace
+
+
+def triplane_sample_backward_bf16(grad_out, coordinates, box_warp, H, W):
+    """grad_out (N, 3, M, C), coordinates (N, M, 3) -> the gradient of
+    planes stored in bf16, (N, 3, H, W, C) bf16: each texel's float32 sum
+    rounded once. The binned kernels on CUDA tensors, the plain version
+    and a cast on CPU tensors."""
+    if grad_out.is_cuda:
+        return _backward_bf16_cuda(grad_out.contiguous(), coordinates,
+                                   box_warp, H, W)[0]
+    return triplane_sample_backward_plain(grad_out, coordinates, box_warp,
+                                          H, W).to(torch.bfloat16)
+
+
 class _SampleWithBackward(torch.autograd.Function):
     """K4 with K4's backward; the planes' gradient only, for either
-    storage type: float32 planes take the float32 forward, bf16 planes the
-    bf16 instance, and both the float32 backward kernel, whose result is
-    cast to the planes' type once. On CPU tensors both directions run the
-    plain versions."""
+    storage type: float32 planes take the float32 forward and backward,
+    bf16 planes the bf16 instance and the binned bf16 backward. On CPU
+    tensors both directions run the plain versions."""
 
     @staticmethod
     def forward(ctx, planes_cl, coordinates, box_warp):
@@ -300,10 +493,10 @@ class _SampleWithBackward(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, grad_out):
         coordinates, = ctx.saved_tensors
-        grad = triplane_sample_backward(
-            grad_out, coordinates, ctx.box_warp, *ctx.size,
-            INSTANCES[ctx.dtype][1])
-        return grad.to(ctx.dtype), None, None
+        backward = triplane_sample_backward_bf16 \
+            if ctx.dtype == torch.bfloat16 else triplane_sample_backward
+        return backward(grad_out, coordinates, ctx.box_warp,
+                        *ctx.size), None, None
 
 
 def triplane_sample(planes_cl, coordinates, box_warp):
@@ -325,4 +518,4 @@ def triplane_sample(planes_cl, coordinates, box_warp):
 triplane_sample.launches = 0
 triplane_sample.launches_bf16 = 0
 triplane_sample_backward.launches = 0
-triplane_sample_backward.launches_bf16 = 0
+triplane_sample_backward_bf16.launches = 0

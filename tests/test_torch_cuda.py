@@ -18,8 +18,9 @@ and, once each segment is sorted by face id, its slab bit for bit
 starts on the kept faces (csrc/raster_zbuffer.cu); K4 within 1e-5 (its
 unnormalization rounds in another order than F.grid_sample), its bf16-plane
 instance too (it sums in float32, as the plain version on the upcast
-planes does), its bf16 backward within bf16's rounding of the plain
-float32 gradient, and K4's
+planes does), its bf16 backward (the binned kernels) within one bf16 ulp
+of the plain float32 gradient's cast, its tile counts equal to the model's,
+and K4's
 backward within 1e-5 of the largest gradient of its plain version and of
 grid_sampler_2d_backward, both adding in float64 (its atomics add in no
 fixed order); the slices within the fp32 parity gate of ROADMAP.md (max-abs
@@ -54,9 +55,11 @@ from next3d_tpu_torch.ops.raster_zbuffer import (rasterize_zbuffer,
                                                  rasterize_zbuffer_plain,
                                                  zbuffer_prep,
                                                  zbuffer_prep_cuda)
-from next3d_tpu_torch.ops.triplane import (channels_last, kernel_positions,
+from next3d_tpu_torch.ops.triplane import (_backward_bf16_cuda, bin_counts,
+                                           channels_last, kernel_positions,
                                            triplane_sample,
                                            triplane_sample_backward,
+                                           triplane_sample_backward_bf16,
                                            triplane_sample_backward_plain,
                                            triplane_sample_plain)
 from next3d_tpu_torch.render.camera_utils import (fov_to_intrinsics,
@@ -435,6 +438,47 @@ def test_k4_backward_kernel_matches_plain(device, case):
     assert (got - library).abs().max().item() <= 1e-5 * scale
 
 
+@pytest.mark.parametrize('case', ['render', 'ragged', 'nonsquare',
+                                  'one_cell', 'jittered', 'fine_like'])
+def test_k4_bf16_backward_binned_matches_plain(device, case):
+    """K4's bf16 backward, the binned kernels, against its plain version
+    (the float32 plain backward cast to bf16) within one bf16 ulp (2^-7 of
+    each value) plus 1e-5 of the largest gradient (the two add in float32
+    in other orders before the rounding), on the float32 backward's point
+    sets: the one-texel set splits its tiles into chunks. Its tile counts
+    equal the model's (ops/triplane.py bin_counts) and it counts one
+    launch."""
+    coords, box_warp, (H, W) = _k4_backward_points(case, device)
+    n, m, _ = coords.shape
+    g = torch.Generator(device=device).manual_seed(4)
+    grad_out = torch.randn(n, 3, m, 32, generator=g, device=device)
+    before = triplane_sample_backward_bf16.launches
+    got, workspace = _backward_bf16_cuda(grad_out, coords, box_warp, H, W)
+    want = triplane_sample_backward_plain(grad_out, coords, box_warp, H,
+                                          W).to(torch.bfloat16).float()
+    torch.cuda.synchronize()
+    assert triplane_sample_backward_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (n, 3, H, W, 32)
+    scale = want.abs().max().item()
+    assert scale > 0 and bool(((got.float() - want).abs()
+                               <= 2 ** -7 * want.abs() + 1e-5 * scale).all())
+    counts = bin_counts(coords, box_warp, H, W)
+    starts = workspace[2:counts.numel() + 3].long()
+    assert torch.equal(starts[1:] - starts[:-1], counts)
+    if case == 'one_cell':
+        assert workspace[1].item() > 0    # split tiles
+
+
+def test_k4_bf16_backward_binned_without_points(device):
+    """No points: the binned kernels write every texel's zero."""
+    grad = triplane_sample_backward_bf16(
+        torch.zeros(2, 3, 0, 32, device=device),
+        torch.zeros(2, 0, 3, device=device), 1.0, 40, 24)
+    torch.cuda.synchronize()
+    assert grad.dtype == torch.bfloat16 and grad.shape == (2, 3, 40, 24, 32)
+    assert not grad.any()
+
+
 def test_k4_backward_through_both_render_passes(device):
     """Training's use of K4's backward: the planes' gradient of a small
     renderer's rgb (coarse and fine pass, midpoint depths and linspace
@@ -510,11 +554,12 @@ def test_k4_bf16_instance_matches_plain(device, case):
 def test_k4_bf16_instance_raises_under_grad_mode(device):
     """Under grad mode the bf16 instance raises only for coordinates that
     require grad, as the float32 one does. bf16 planes that require grad
-    get their gradient from the float32 backward kernel, counted in
-    launches_bf16, cast to bf16 once: within bf16's rounding (2^-8 of each
-    value) plus 1e-5 of the largest gradient (the kernel's float32 atomics
-    against the plain version's float64 sums) of the plain float32
-    gradient. Under no_grad they run; other storage types raise."""
+    get their gradient from the binned bf16 backward, counted in its own
+    launches and not the float32 backward's, each value rounded to bf16
+    once: within bf16's rounding (2^-8 of each value) plus 1e-5 of the
+    largest gradient (the kernels' float32 sums against the plain
+    version's float64 sums) of the plain float32 gradient. Under no_grad
+    they run; other storage types raise."""
     g = torch.Generator(device=device).manual_seed(7)
     planes = channels_last(torch.randn(1, 3, 32, 64, 48, generator=g,
                                        device=device), torch.bfloat16)
@@ -524,14 +569,14 @@ def test_k4_bf16_instance_raises_under_grad_mode(device):
     p = planes.clone().requires_grad_()
     before = (triplane_sample.launches_bf16,
               triplane_sample_backward.launches,
-              triplane_sample_backward.launches_bf16)
+              triplane_sample_backward_bf16.launches)
     out = triplane_sample(p, coords, 1.0)
     assert out.dtype == torch.float32 and out.requires_grad
     grad_out = torch.randn(out.shape, generator=g, device=device)
     out.backward(grad_out)
     torch.cuda.synchronize()
     assert (triplane_sample.launches_bf16, triplane_sample_backward.launches,
-            triplane_sample_backward.launches_bf16) == \
+            triplane_sample_backward_bf16.launches) == \
         (before[0] + 1, before[1], before[2] + 1)
     want = triplane_sample_backward_plain(grad_out.double(), coords, 1.0,
                                           64, 48)

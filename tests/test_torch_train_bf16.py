@@ -227,13 +227,13 @@ def test_k4_bf16_function_backward_on_cpu(rng):
     """K4's autograd Function, which the card runs for bf16 planes that
     require grad: on CPU tensors its backward is the plain float32
     backward's gradient cast to bf16, returned in bf16, with no launch
-    counted."""
+    counted by either backward kernel."""
     planes = torch.from_numpy(rng.randn(2, 3, 16, 12, 32).astype(
         np.float32)).to(torch.bfloat16).requires_grad_()
     coords = t(rng.uniform(-0.6, 0.6, (2, 500, 3)).astype(np.float32))
     grad_out = t(rng.randn(2, 3, 500, 32).astype(np.float32))
     before = (triplane.triplane_sample_backward.launches,
-              triplane.triplane_sample_backward.launches_bf16)
+              triplane.triplane_sample_backward_bf16.launches)
     out = triplane._SampleWithBackward.apply(planes, coords, 1.0)
     torch.testing.assert_close(
         out, triplane.triplane_sample_plain(planes.detach(), coords, 1.0),
@@ -244,4 +244,4 @@ def test_k4_bf16_function_backward_on_cpu(rng):
     assert planes.grad.dtype == torch.bfloat16
     assert torch.equal(planes.grad, want.to(torch.bfloat16))
     assert (triplane.triplane_sample_backward.launches,
-            triplane.triplane_sample_backward.launches_bf16) == before
+            triplane.triplane_sample_backward_bf16.launches) == before
