@@ -1,0 +1,8 @@
+"""K4's float32 backward (``csrc/triplane_sample.cu``): its least time at
+the cell's shapes over its device time."""
+from benchmark import readers
+
+
+def read(rec):
+    return readers.kernel_roofline(
+        rec, readers.K4B, readers.k4_least_s(rec, 'k4b', backward=True))
