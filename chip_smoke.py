@@ -2923,7 +2923,8 @@ def parallel_rank(rank, init_file, spec_path, out_dir):
     from next3d_tpu_torch.train.train_step import (TrainStep,
                                                    make_optimizer,
                                                    trainable_parameters)
-    from next3d_tpu_torch.train.training_loop import PhaseTimer, rank_seed
+    from next3d_tpu_torch.train.training_loop import rank_seed
+    from next3d_tpu_torch.utils.profiling import PhaseTimer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

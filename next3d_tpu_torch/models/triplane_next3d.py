@@ -17,6 +17,15 @@ are sampled by kernel K4 inside the volume renderer. The mouth crop and
 paste are per-sample slices plus antialiased ``F.interpolate``, which reads
 the landmark boxes on the host.
 
+Spans (``utils/profiling.py``): ``G.mapping``; ``G.synthesis`` and
+``G.synthesis_from_identity`` around those calls, whose stages
+``G.backbones``, ``G.raster``, ``G.mouth_blend``, ``G.plane_mix``,
+``G.render`` and ``G.sr`` tile them, each with its parts
+(``G.raster.project``, ``.kernel``, ``.sample``, ``.flood``;
+``G.mouth_blend.crop``, ``.mouth``, ``.paste``, ``.blend``;
+``G.render.rays``, ``.coarse``, ``.importance``, ``.fine``,
+``.composite``); and a ``sync.<site>`` span around each host sync.
+
 ``force_fp32=True`` (the default, as in JAX) runs everything float32.
 ``force_fp32=False`` is the JAX package's serving fast path, by explicit
 casts where JAX casts (not autocast): the ``use_fp16`` blocks of every
@@ -53,6 +62,7 @@ from ..render.rasterizer import (rasterize_uv_with_alpha,
 from ..render.ray_sampler import sample_rays
 from ..render.renderer import ImportanceRenderer, layout_for
 from ..utils.obj_io import ObjMesh, load_obj
+from ..utils.profiling import span
 from ..utils.registry import register
 from .osg_decoder import OSGDecoder
 
@@ -230,12 +240,14 @@ class TriPlaneGenerator(nn.Module):
                 return_w_mean=False):
         """Camera-only conditioning, optionally zeroed (reference :111-115);
         ``return_w_mean`` as in ``nn.stylegan2.MappingNetwork``."""
-        if self.rendering_kwargs.get('c_gen_conditioning_zero', True):
-            c = torch.zeros_like(c)
-        c = c[:, :25] * self.rendering_kwargs.get('c_scale', 0)
-        return self.backbone.mapping(z, c, truncation_psi=truncation_psi,
-                                     truncation_cutoff=truncation_cutoff,
-                                     return_w_mean=return_w_mean)
+        with span('G.mapping'):
+            if self.rendering_kwargs.get('c_gen_conditioning_zero', True):
+                c = torch.zeros_like(c)
+            c = c[:, :25] * self.rendering_kwargs.get('c_scale', 0)
+            return self.backbone.mapping(
+                z, c, truncation_psi=truncation_psi,
+                truncation_cutoff=truncation_cutoff,
+                return_w_mean=return_w_mean)
 
     # ------------------------------------------------------------- rasterize
     def project_views(self, v, lms):
@@ -243,15 +255,19 @@ class TriPlaneGenerator(nn.Module):
         (N, 68, 3) through the 4 views, view-major: the rasterizer input
         (V*N, 5023, 3) and the 2D landmarks (V*N, 68, 2)."""
         V = len(RENDERING_VIEWS)
-        flip = torch.tensor([1., -1., 1.], device=v.device)
+        with span('sync.project_flip'):
+            flip = torch.tensor([1., -1., 1.], device=v.device)
 
         def project(points):
             p = torch.einsum('vnpc,vcd->vnpd',
                              (points * flip)[None].expand(V, -1, -1, -1),
                              self.view_tforms)
             p = (p + self.orth_shift) * self.orth_scale
+            with span('sync.orth_camera'):
+                camera = torch.tensor([1., 0., 0.], dtype=p.dtype,
+                                      device=p.device)
             return batch_orth_proj(p.reshape(V * points.shape[0], -1, 3),
-                                   torch.tensor([1., 0., 0.]))
+                                   camera)
 
         tv = project(v)
         tv = torch.cat([tv[..., :1], -tv[..., 1:2], 10.0 - tv[..., 2:]], -1)
@@ -265,33 +281,40 @@ class TriPlaneGenerator(nn.Module):
         or the alpha (JAX :307-308)."""
         N = v.shape[0]
         V = len(RENDERING_VIEWS)
-        tv, tl = self.project_views(v, lms)
+        with span('G.raster.project'):
+            tv, tl = self.project_views(v, lms)
         res = self.uv_resolution
-        rendering = rasterize_uv_with_alpha(
-            tv, self.faces, self.face_uv[None], res,
-            patch=self.rasterizer_patch,
-            face_chunk=self.rasterizer_face_chunk, impl=self.rasterizer_impl,
-            tile_capacity=self.rasterizer_tile_capacity
-        ).detach()                                        # (V*N, 3, H, W)
-        alpha = rendering[:, -1:]
-        grid = rendering.permute(0, 2, 3, 1)[..., :2]
-        # the views fold into the grid, not the texture batch: the texture
-        # and the eye mask are shared by all views of a sample
-        grid_vn = grid.reshape(V, N, res, res, 2).transpose(0, 1).reshape(
-            N, V * res, res, 2)
-        table = torch.cat([textures, self.uv_face_mask.expand(
-            N, 1, res, res)], dim=1)
-        if not self.force_fp32:
-            # the texture and the eye mask are stored in bf16 (JAX
-            # :316-317,338-341); the rounded table is sampled in float32,
-            # since F.grid_sample takes one dtype for table and grid, and a
-            # bf16 grid would move positions by up to a texel
-            table = table.to(torch.bfloat16).float()
-        sampled = grid_sample_2d(table, grid_vn)          # (N, 33, V*res, res)
-        sampled = sampled.reshape(N, -1, V, res, res).permute(2, 0, 1, 3, 4)
-        sampled = sampled.reshape(V * N, -1, res, res)
-        rendering_image = sampled[:, :-1]
-        alpha = fill_mouth(sampled[:, -1:] * alpha)
+        with span('G.raster.kernel'):
+            rendering = rasterize_uv_with_alpha(
+                tv, self.faces, self.face_uv[None], res,
+                patch=self.rasterizer_patch,
+                face_chunk=self.rasterizer_face_chunk,
+                impl=self.rasterizer_impl,
+                tile_capacity=self.rasterizer_tile_capacity
+            ).detach()                                    # (V*N, 3, H, W)
+        with span('G.raster.sample'):
+            alpha = rendering[:, -1:]
+            grid = rendering.permute(0, 2, 3, 1)[..., :2]
+            # the views fold into the grid, not the texture batch: the
+            # texture and the eye mask are shared by all views of a sample
+            grid_vn = grid.reshape(V, N, res, res, 2).transpose(0, 1).reshape(
+                N, V * res, res, 2)
+            table = torch.cat([textures, self.uv_face_mask.expand(
+                N, 1, res, res)], dim=1)
+            if not self.force_fp32:
+                # the texture and the eye mask are stored in bf16 (JAX
+                # :316-317,338-341); the rounded table is sampled in
+                # float32, since F.grid_sample takes one dtype for table
+                # and grid, and a bf16 grid would move positions by up to
+                # a texel
+                table = table.to(torch.bfloat16).float()
+            sampled = grid_sample_2d(table, grid_vn)    # (N, 33, V*res, res)
+            sampled = sampled.reshape(N, -1, V, res, res).permute(
+                2, 0, 1, 3, 4)
+            sampled = sampled.reshape(V * N, -1, res, res)
+            rendering_image = sampled[:, :-1]
+        with span('G.raster.flood'):
+            alpha = fill_mouth(sampled[:, -1:] * alpha)
 
         rendering_image = rendering_image.reshape(V, N, -1, res, res)
         alpha = alpha.reshape(V, N, 1, res, res)
@@ -331,25 +354,31 @@ class TriPlaneGenerator(nn.Module):
 
     def _mouth_pipeline(self, rendering_front, lm2d_front, eg3d_ws,
                         noise_mode, generator):
-        boxes = self.gen_mouth_mask(lm2d_front).tolist()
-        # under force_fp32=False the crop and the paste run bf16 (JAX
-        # :393-409)
-        front = rendering_front if self.force_fp32 \
-            else rendering_front.to(torch.bfloat16)
-        crop = torch.stack([
-            resample_region(img, y0, x0, y1 - y0, x1 - x0, 64, 64)
-            for img, (y0, y1, x0, x1) in zip(front, boxes)])
-        mouths_plane = self.mouth_backbone.synthesis(
-            crop, eg3d_ws, noise_mode=noise_mode, generator=generator,
-            force_fp32=self.force_fp32)
-        stitched = torch.stack([
-            paste_resized_region(img, patch.to(front.dtype), y0, x0,
-                                 y1 - y0, x1 - x0)
-            for img, patch, (y0, y1, x0, x1)
-            in zip(front, mouths_plane, boxes)])
-        return self.neural_blending.synthesis(
-            stitched, eg3d_ws, noise_mode=noise_mode, generator=generator,
-            force_fp32=self.force_fp32)
+        with span('G.mouth_blend.crop'):
+            boxes = self.gen_mouth_mask(lm2d_front)
+            with span('sync.mouth_boxes'):
+                boxes = boxes.tolist()
+            # under force_fp32=False the crop and the paste run bf16 (JAX
+            # :393-409)
+            front = rendering_front if self.force_fp32 \
+                else rendering_front.to(torch.bfloat16)
+            crop = torch.stack([
+                resample_region(img, y0, x0, y1 - y0, x1 - x0, 64, 64)
+                for img, (y0, y1, x0, x1) in zip(front, boxes)])
+        with span('G.mouth_blend.mouth'):
+            mouths_plane = self.mouth_backbone.synthesis(
+                crop, eg3d_ws, noise_mode=noise_mode, generator=generator,
+                force_fp32=self.force_fp32)
+        with span('G.mouth_blend.paste'):
+            stitched = torch.stack([
+                paste_resized_region(img, patch.to(front.dtype), y0, x0,
+                                     y1 - y0, x1 - x0)
+                for img, patch, (y0, y1, x0, x1)
+                in zip(front, mouths_plane, boxes)])
+        with span('G.mouth_blend.blend'):
+            return self.neural_blending.synthesis(
+                stitched, eg3d_ws, noise_mode=noise_mode,
+                generator=generator, force_fp32=self.force_fp32)
 
     # ----------------------------------------------------------- plane build
     def _split_v(self, v):
@@ -359,6 +388,7 @@ class TriPlaneGenerator(nn.Module):
                 f'expected {N_FLAME_VERTS} verts followed by the landmarks')
         return v[:, :N_FLAME_VERTS], v[:, N_FLAME_VERTS:]
 
+    @span('G.backbones')
     def build_identity(self, ws, noise_mode='random', generator=None):
         """The ws-only identity work: (neural texture (N, 32, R, R), static
         tri-plane (N, 3, 32, R, R)), cacheable per subject."""
@@ -386,14 +416,18 @@ class TriPlaneGenerator(nn.Module):
                                  lms, noise_mode='random', generator=None):
         """Expression-dependent tail: rasterize -> mouth -> blend -> alpha
         mix, from cached identity inputs."""
-        images, alphas, lm2d_front = self.rasterize(v, lms, textures)
-        blended_front = self._mouth_pipeline(images[0], lm2d_front, eg3d_ws,
-                                             noise_mode, generator)
-        alpha_image = torch.stack(alphas, dim=1)       # (N, 3, 1, H, W)
-        stitch = torch.cat([blended_front, images[1], images[2]], dim=1)
-        stitch = stitch.reshape(static_plane.shape)
-        return stitch * alpha_image + static_plane * (1 - alpha_image)
+        with span('G.raster'):
+            images, alphas, lm2d_front = self.rasterize(v, lms, textures)
+        with span('G.mouth_blend'):
+            blended_front = self._mouth_pipeline(
+                images[0], lm2d_front, eg3d_ws, noise_mode, generator)
+        with span('G.plane_mix'):
+            alpha_image = torch.stack(alphas, dim=1)   # (N, 3, 1, H, W)
+            stitch = torch.cat([blended_front, images[1], images[2]], dim=1)
+            stitch = stitch.reshape(static_plane.shape)
+            return stitch * alpha_image + static_plane * (1 - alpha_image)
 
+    @span('G.synthesis_from_identity')
     def synthesis_from_identity(self, ws, textures, static_plane, c, v,
                                 neural_rendering_resolution=None,
                                 noise_mode='random', generator=None):
@@ -408,6 +442,7 @@ class TriPlaneGenerator(nn.Module):
                                         noise_mode, generator)
 
     # -------------------------------------------------------------- synthesis
+    @span('G.synthesis')
     def synthesis(self, ws, c, v, neural_rendering_resolution=None,
                   noise_mode='random', generator=None):
         planes, eg3d_ws = self.build_planes(ws, v, noise_mode=noise_mode,
@@ -419,23 +454,28 @@ class TriPlaneGenerator(nn.Module):
     def _render_from_planes(self, planes, eg3d_ws, c,
                             neural_rendering_resolution, noise_mode,
                             generator):
-        cam2world = c[:, :16].reshape(-1, 4, 4)
-        intrinsics = c[:, 16:25].reshape(-1, 3, 3)
-        nrr = neural_rendering_resolution or self.neural_rendering_resolution
-        ray_origins, ray_directions = sample_rays(cam2world, intrinsics, nrr)
-        N = ray_origins.shape[0]
-        feature_samples, depth_samples, _ = self.renderer(
-            planes, self.decoder, ray_origins, ray_directions,
-            self.rendering_kwargs, generator=generator)
-        feature_image = feature_samples.permute(0, 2, 1).reshape(
-            N, feature_samples.shape[-1], nrr, nrr)
-        depth_image = depth_samples.permute(0, 2, 1).reshape(N, 1, nrr, nrr)
-        rgb_image = feature_image[:, :3]
-        sr_image = self.superresolution(
-            rgb_image, feature_image, eg3d_ws,
-            noise_mode=self.rendering_kwargs.get('superresolution_noise_mode',
-                                                 noise_mode),
-            generator=generator, force_fp32=self.force_fp32)
+        with span('G.render'):
+            nrr = neural_rendering_resolution or \
+                self.neural_rendering_resolution
+            with span('G.render.rays'):
+                ray_origins, ray_directions = sample_rays(
+                    c[:, :16].reshape(-1, 4, 4),
+                    c[:, 16:25].reshape(-1, 3, 3), nrr)
+            N = ray_origins.shape[0]
+            feature_samples, depth_samples, _ = self.renderer(
+                planes, self.decoder, ray_origins, ray_directions,
+                self.rendering_kwargs, generator=generator)
+            feature_image = feature_samples.permute(0, 2, 1).reshape(
+                N, feature_samples.shape[-1], nrr, nrr)
+            depth_image = depth_samples.permute(0, 2, 1).reshape(
+                N, 1, nrr, nrr)
+            rgb_image = feature_image[:, :3]
+        with span('G.sr'):
+            sr_image = self.superresolution(
+                rgb_image, feature_image, eg3d_ws,
+                noise_mode=self.rendering_kwargs.get(
+                    'superresolution_noise_mode', noise_mode),
+                generator=generator, force_fp32=self.force_fp32)
         return {'image': sr_image, 'image_raw': rgb_image,
                 'image_depth': depth_image}
 

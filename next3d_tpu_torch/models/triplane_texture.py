@@ -12,6 +12,10 @@ only the front view's alpha is kept, so only the front view's texture
 reaches the planes. There is no ``fill_mouth``, no mouth StyleUNet and no
 neural blending, so ``load_jax_params(strict=True)`` takes the JAX
 variant's parameter tree as it is.
+
+Spans: the flagship's, but for ``G.mouth_blend`` and ``G.raster.flood``;
+``G.raster`` has the parts ``G.raster.project``, ``.kernel`` (the
+visibility), ``.interpolate`` and ``.sample``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from ..ops.grid_sample import grid_sample_2d
 from ..render.mesh import angle2matrix, batch_orth_proj
-from ..render.rasterizer import rasterize_with_attributes
+from ..render.rasterizer import interpolate_face_attributes, visible_faces
+from ..utils.profiling import span
 from ..utils.registry import register
 from .triplane_next3d import N_FLAME_VERTS, TriPlaneGenerator
 
@@ -59,8 +64,11 @@ class TriPlaneTextureGenerator(TriPlaneGenerator):
         tv = torch.einsum('vnpc,vcd->vnpd', v[None].expand(V, -1, -1, -1),
                           self.view_tforms_orth)
         tv = (tv + self.orth_shift) * self.orth_scale
+        with span('sync.orth_camera'):
+            camera = torch.tensor([1., 0., 0.], dtype=tv.dtype,
+                                  device=tv.device)
         tv = batch_orth_proj(tv.reshape(V * v.shape[0], N_FLAME_VERTS, 3),
-                             torch.tensor([1., 0., 0.]))
+                             camera)
         return torch.cat([tv[..., :1], -tv[..., 1:2], 10.0 - tv[..., 2:]], -1)
 
     def rasterize_orth(self, v, textures):
@@ -70,25 +78,35 @@ class TriPlaneTextureGenerator(TriPlaneGenerator):
         N = v.shape[0]
         V = len(ORTH_VIEWS)
         res = self.uv_resolution
-        rendering = rasterize_with_attributes(
-            self.project_orth(v), self.faces, self.face_uvcoords[None], res,
-            patch=self.rasterizer_patch, face_chunk=self.rasterizer_face_chunk,
-            impl=self.rasterizer_impl,
-            tile_capacity=self.rasterizer_tile_capacity)  # (V*N, 4, R, R)
-        alpha = rendering[:, -1:].detach()
-        # the texture grid keeps its gradient (reference triplane.py:168);
-        # the eye mask is sampled at the same grid without one. The views
-        # fold into the grid, so the texture and the mask are shared by all
-        # views of a sample.
-        grid = rendering[:, :2].permute(0, 2, 3, 1)
-        grid_vn = grid.reshape(V, N, res, res, 2).transpose(0, 1).reshape(
-            N, V * res, res, 2)
-        table = torch.cat([textures, self.uv_face_mask.expand(
-            N, 1, res, res)], dim=1)
-        sampled = grid_sample_2d(table, grid_vn)        # (N, C + 1, V*R, R)
-        sampled = sampled.reshape(N, -1, V, res, res).permute(2, 0, 1, 3, 4)
-        rendering_image = sampled[:, :, :-1]            # (V, N, C, R, R)
-        alpha = sampled[:, :, -1:].detach() * alpha.reshape(V, N, 1, res, res)
+        with span('G.raster.project'):
+            tv = self.project_orth(v)
+        with span('G.raster.kernel'):
+            pix_to_face = visible_faces(
+                tv, self.faces, res, patch=self.rasterizer_patch,
+                face_chunk=self.rasterizer_face_chunk,
+                impl=self.rasterizer_impl,
+                tile_capacity=self.rasterizer_tile_capacity)
+        with span('G.raster.interpolate'):
+            rendering = interpolate_face_attributes(
+                tv, self.faces, self.face_uvcoords[None], pix_to_face,
+                res)                                    # (V*N, 4, R, R)
+        with span('G.raster.sample'):
+            alpha = rendering[:, -1:].detach()
+            # the texture grid keeps its gradient (reference
+            # triplane.py:168); the eye mask is sampled at the same grid
+            # without one. The views fold into the grid, so the texture and
+            # the mask are shared by all views of a sample.
+            grid = rendering[:, :2].permute(0, 2, 3, 1)
+            grid_vn = grid.reshape(V, N, res, res, 2).transpose(0, 1).reshape(
+                N, V * res, res, 2)
+            table = torch.cat([textures, self.uv_face_mask.expand(
+                N, 1, res, res)], dim=1)
+            sampled = grid_sample_2d(table, grid_vn)    # (N, C + 1, V*R, R)
+            sampled = sampled.reshape(N, -1, V, res, res).permute(
+                2, 0, 1, 3, 4)
+            rendering_image = sampled[:, :, :-1]        # (V, N, C, R, R)
+            alpha = sampled[:, :, -1:].detach() * alpha.reshape(
+                V, N, 1, res, res)
 
         renderings = torch.cat([rendering_image[0], rendering_image[1],
                                 rendering_image[2] + rendering_image[3]],
@@ -104,10 +122,12 @@ class TriPlaneTextureGenerator(TriPlaneGenerator):
         """rasterize_orth -> alpha mix with the static tri-plane (JAX
         build_planes :90-106); ``lms``, ``noise_mode`` and ``generator`` are
         unused."""
-        renderings, alphas = self.rasterize_orth(v, textures)
-        renderings = renderings.reshape(static_plane.shape)
-        alphas = alphas[:, :, None]                     # (N, 3, 1, R, R)
-        return renderings * alphas + static_plane * (1 - alphas)
+        with span('G.raster'):
+            renderings, alphas = self.rasterize_orth(v, textures)
+        with span('G.plane_mix'):
+            renderings = renderings.reshape(static_plane.shape)
+            alphas = alphas[:, :, None]                 # (N, 3, 1, R, R)
+            return renderings * alphas + static_plane * (1 - alphas)
 
 
 @register('TriPlaneTextureGenerator')

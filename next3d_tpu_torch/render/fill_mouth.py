@@ -7,14 +7,16 @@ renderer.py:583-601). The flood runs as rounds of directional sweeps, each
 propagating reachability along every row and column in both directions with
 ``cumsum``/``cummax``, until the reachable count stops changing; the result
 is exact for any topology. The loop condition reads the count on the host,
-one sync per round. ``fill_mouth_exact`` is the JAX package's fixed-round
-dilation flood, kept to cross-check it.
+one sync per round (each a ``sync.flood_round`` span). ``fill_mouth_exact``
+is the JAX package's fixed-round dilation flood, kept to cross-check it.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..utils.profiling import span
 
 _INT32_MIN = torch.iinfo(torch.int32).min
 
@@ -46,11 +48,15 @@ def _flood_reachable(fillable, seed):
         r = _sweep_axis(r, seg_w, fillable, -1)
         return _sweep_axis(r, seg_h, fillable, -2)
 
+    def count(r):
+        with span('sync.flood_round'):
+            return int(r.sum())
+
     r = round_(seed & fillable)
-    prev, n = -1, int(r.sum())
+    prev, n = -1, count(r)
     while n != prev:
         r = round_(r)
-        prev, n = n, int(r.sum())
+        prev, n = n, count(r)
     return r
 
 

@@ -40,6 +40,7 @@ import torch
 from ..ops.raster import (rasterize_binned, rasterize_binned_uv,
                           rasterize_binned_uv16)
 from ..ops.raster_zbuffer import _ordered, fma32, rasterize_zbuffer
+from ..utils.profiling import span
 
 IMPLS = ('auto', 'pallas_binned', 'pallas_binned16', 'pallas', 'tiled',
          'scatter')
@@ -389,8 +390,10 @@ def interpolate_face_attributes(verts, faces, attributes, pix_to_face,
     mask = (pix_to_face >= 0).reshape(B, H * W)
     fidx = torch.where(mask, pix_to_face.reshape(B, H * W), 0).long()
 
-    half = verts.new_tensor(W / 2)
-    shift = verts.new_tensor(-0.5)
+    with span('sync.interpolate_constant'):
+        half = verts.new_tensor(W / 2)
+    with span('sync.interpolate_constant'):
+        shift = verts.new_tensor(-0.5)
     vx = _fma(verts[..., 0] + 1, half, shift)
     vy = _fma(verts[..., 1] + 1, half, shift)
     tri = faces.long()
@@ -427,13 +430,12 @@ def interpolate_face_attributes(verts, faces, attributes, pix_to_face,
     return torch.cat([out, alpha], dim=1)
 
 
-def rasterize_with_attributes(verts, faces, attributes, image_size,
-                              patch=32, face_chunk=2048, impl='auto',
-                              tile_capacity=320):
-    """(B, D + 1, H, W) attribute and alpha images (JAX :420-456): the
-    visibility of the rasterizer that ``select_impl`` picks (K2, K5 with
+def visible_faces(verts, faces, image_size, patch=32, face_chunk=2048,
+                  impl='auto', tile_capacity=320):
+    """pix_to_face (B, H, W), -1 where empty: the visibility of the
+    rasterizer that ``select_impl`` picks for attributes (K2, K5 with
     ``patch``, 'tiled' with ``tile_capacity`` or 'scatter' with ``patch``
-    and ``face_chunk``), then ``interpolate_face_attributes``."""
+    and ``face_chunk``)."""
     impl = select_impl(impl, image_size, attributes=True)
     if impl == 'pallas_binned':
         pix_to_face, _ = rasterize_binned(verts, faces, image_size)
@@ -445,6 +447,17 @@ def rasterize_with_attributes(verts, faces, attributes, image_size,
     else:
         pix_to_face, _ = rasterize_mesh(verts, faces, image_size, patch=patch,
                                         face_chunk=face_chunk)
+    return pix_to_face
+
+
+def rasterize_with_attributes(verts, faces, attributes, image_size,
+                              patch=32, face_chunk=2048, impl='auto',
+                              tile_capacity=320):
+    """(B, D + 1, H, W) attribute and alpha images (JAX :420-456):
+    ``visible_faces``, then ``interpolate_face_attributes``."""
+    pix_to_face = visible_faces(verts, faces, image_size, patch=patch,
+                                face_chunk=face_chunk, impl=impl,
+                                tile_capacity=tile_capacity)
     return interpolate_face_attributes(verts, faces, attributes, pix_to_face,
                                        image_size)
 

@@ -23,6 +23,12 @@ sample, and that path samples the planes as they are, without
 ``gather_bf16``'s cast. The port samples through K4 on every path, so the
 option selects the same function here: the float32 sample of the planes
 as they are. It refuses what the JAX path refuses (``check_fused_options``).
+
+Spans (``utils/profiling.py``): a render's parts ``G.render.coarse`` (the
+planes' layout, the ray limits, the stratified depths and the coarse
+pass), ``G.render.importance`` (the coarse weights and the importance
+draw), ``G.render.fine`` and ``G.render.composite`` (the merge and the
+final march).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.triplane import channels_last, triplane_sample
+from ..utils.profiling import span
 from . import math_utils
 from .ray_marcher import mip_ray_marcher2
 
@@ -221,23 +228,6 @@ class ImportanceRenderer:
         """planes (N, 3, C, H, W) -> (rgb (N, R, C), depth (N, R, 1),
         weight_sum (N, R, 1))."""
         opts = rendering_options
-        planes_cl = layout_for(planes, opts)
-        if opts['ray_start'] == opts['ray_end'] == 'auto':
-            ray_start, ray_end = math_utils.get_ray_limits_box(
-                ray_origins, ray_directions, box_side_length=opts['box_warp'])
-            # invalid rays take the min/max start of the valid ones
-            # (reference :100-103)
-            valid = ray_end > ray_start
-            vmin = torch.where(valid, ray_start, 1e10).min()
-            vmax = torch.where(valid, ray_start, -1e10).max()
-            ray_start = torch.where(valid, ray_start, vmin)
-            ray_end = torch.where(valid, ray_end, vmax)
-        else:
-            ray_start, ray_end = opts['ray_start'], opts['ray_end']
-        depths_coarse = sample_stratified(
-            generator, ray_origins, ray_start, ray_end,
-            opts['depth_resolution'], opts['disparity_space_sampling'])
-        N, R, S, _ = depths_coarse.shape
 
         def run(depths):
             n = depths.shape[2]
@@ -250,20 +240,43 @@ class ImportanceRenderer:
             return (out['rgb'].reshape(N, R, n, -1),
                     out['sigma'].reshape(N, R, n, 1))
 
-        colors_coarse, densities_coarse = run(depths_coarse)
+        with span('G.render.coarse'):
+            planes_cl = layout_for(planes, opts)
+            if opts['ray_start'] == opts['ray_end'] == 'auto':
+                ray_start, ray_end = math_utils.get_ray_limits_box(
+                    ray_origins, ray_directions,
+                    box_side_length=opts['box_warp'])
+                # invalid rays take the min/max start of the valid ones
+                # (reference :100-103)
+                valid = ray_end > ray_start
+                vmin = torch.where(valid, ray_start, 1e10).min()
+                vmax = torch.where(valid, ray_start, -1e10).max()
+                ray_start = torch.where(valid, ray_start, vmin)
+                ray_end = torch.where(valid, ray_end, vmax)
+            else:
+                ray_start, ray_end = opts['ray_start'], opts['ray_end']
+            depths_coarse = sample_stratified(
+                generator, ray_origins, ray_start, ray_end,
+                opts['depth_resolution'], opts['disparity_space_sampling'])
+            N, R, S, _ = depths_coarse.shape
+            colors_coarse, densities_coarse = run(depths_coarse)
         N_importance = opts['depth_resolution_importance']
         if N_importance > 0:
-            _, _, weights = mip_ray_marcher2(colors_coarse, densities_coarse,
-                                             depths_coarse, opts)
-            depths_fine = sample_importance(generator, depths_coarse,
-                                            weights, N_importance)
-            colors_fine, densities_fine = run(depths_fine)
-            all_depths, all_colors, all_densities = unify_samples(
-                depths_coarse, colors_coarse, densities_coarse,
-                depths_fine, colors_fine, densities_fine)
-            rgb_final, depth_final, weights = mip_ray_marcher2(
-                all_colors, all_densities, all_depths, opts)
-        else:
+            with span('G.render.importance'):
+                _, _, weights = mip_ray_marcher2(
+                    colors_coarse, densities_coarse, depths_coarse, opts)
+                depths_fine = sample_importance(generator, depths_coarse,
+                                                weights, N_importance)
+            with span('G.render.fine'):
+                colors_fine, densities_fine = run(depths_fine)
+            with span('G.render.composite'):
+                all_depths, all_colors, all_densities = unify_samples(
+                    depths_coarse, colors_coarse, densities_coarse,
+                    depths_fine, colors_fine, densities_fine)
+                rgb_final, depth_final, weights = mip_ray_marcher2(
+                    all_colors, all_densities, all_depths, opts)
+                return rgb_final, depth_final, weights.sum(dim=2)
+        with span('G.render.composite'):
             rgb_final, depth_final, weights = mip_ray_marcher2(
                 colors_coarse, densities_coarse, depths_coarse, opts)
-        return rgb_final, depth_final, weights.sum(dim=2)
+            return rgb_final, depth_final, weights.sum(dim=2)

@@ -32,13 +32,14 @@ recompute replays the forward's draws: it runs on a generator rebuilt
 from the caller's state before the forward, and the caller's generator is
 left where a run without remat leaves it, so the losses and gradients are
 those of a run without remat. The recompute runs synthesis again, its
-host syncs (the mouth boxes, ``fill_mouth``'s rounds) and its rasterizer
-launch included. The whole synthesis is one checkpoint, so the recompute
-holds all its activations again during its own backward: the peak memory
-falls only by D's share (``chip_smoke.py`` phase 18 logs both). The
-port's default is off (the JAX default is on, because a 16 GB TPU needs
-it), and the bench (``next3d_tpu_torch/bench.py``) turns it on, as
-``bench.py`` runs it.
+host syncs (each a ``sync.*`` span of ``utils/profiling.py``: the mouth
+boxes, ``fill_mouth``'s rounds, the projection's constants) and its
+rasterizer launch included. The whole synthesis is one checkpoint, so the
+recompute holds all its activations again during its own backward: the
+peak memory falls only by D's share (``chip_smoke.py`` phase 18 logs
+both). The port's default is off (the JAX default is on, because a 16 GB
+TPU needs it), and the bench (``next3d_tpu_torch/bench.py``) turns it on,
+as ``bench.py`` runs it.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from ..nn.discriminator import filtered_resizing
 from ..ops import setup_filter
 from ..ops.interpolate import interpolate_bilinear
+from ..utils.profiling import span
 
 
 @dataclass
@@ -246,8 +248,9 @@ class StyleGAN2Loss:
 
     def prepare_real(self, real_img, blur_sigma, nrr):
         """The raw-branch target of a real batch (JAX :224-234)."""
-        raw = filtered_resizing(real_img, size=nrr,
-                                f=self.resample_filter.to(real_img.device),
+        with span('sync.real_filter'):
+            f = self.resample_filter.to(real_img.device)
+        raw = filtered_resizing(real_img, size=nrr, f=f,
                                 filter_mode=self.cfg.filter_mode)
         if self.blur_max_size > 0 and blur_sigma > 0:
             raw = gaussian_blur_dynamic(raw, blur_sigma, self.blur_max_size)

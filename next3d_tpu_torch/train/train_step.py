@@ -32,9 +32,16 @@ flat bucket, one collective a phase as JAX's one ``pmean`` a phase (JAX
 ``w_mean`` ride the same bucket, as JAX pmeans them with the gradients, so
 ``Grad/<phase>/norm`` is the norm of the mean gradient and ``w_avg`` stays
 bit-equal across the replicas (the reference lets it drift a rank; JAX
-does not). On a sampled batch, the timer reports the bucket's all-reduce
-as ``Timing/<phase>/allreduce``. Without a process group nothing is
-reduced: the one-card path.
+does not). Without a process group nothing is reduced: the one-card path.
+
+Spans (``utils/profiling.py``): each phase is the span ``<phase>``, in
+three parts, ``<phase>/forward`` (the loss), ``<phase>/backward`` and
+``<phase>/update`` (the zero gradients of unreached leaves, the
+all-reduce, the norm, the scrubbing and the Adam step), and a fourth in
+Gmain and Dmain, ``<phase>/w_avg``; under several ranks the update holds
+``<phase>/allreduce``. ``run_phases(timer=)`` installs its timer as the
+current collector, so on a sampled batch the train command's
+``PhaseTimer`` reports each of them as ``Timing/<name>``.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import contextlib
 import torch
 
 from ..parallel import dist
+from ..utils.profiling import collecting, span
 
 NON_TRAINABLE_LEAVES = ('w_avg', 'noise_const', 'orth_scale', 'orth_shift',
                         'magnitude_ema')
@@ -103,35 +111,34 @@ def _frozen(others):
             p.requires_grad_(True)
 
 
-def _adam_step(optimizer, loss, shared, timer=None, name=''):
-    """Backward, the mean over the ranks of the gradients and of the
-    tensors ``shared`` (the phase's stats and w_mean, in place) in one
-    bucket, NaN / inf scrubbing and one Adam step; returns the norm of the
-    gradients before the scrubbing (not finite where one was not)."""
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    params = _params(optimizer)
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if dist.active():
-        with _phase(timer, f'{name}/allreduce'):
-            dist.all_reduce_mean([p.grad for p in params] + list(shared))
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(p.grad) for p in params]))
-    for p in params:
-        torch.nan_to_num_(p.grad)
-    optimizer.step()
+def _adam_step(optimizer, loss, shared, name):
+    """Phase ``name``'s backward, then its update: the mean over the ranks
+    of the gradients and of the tensors ``shared`` (the phase's stats and
+    w_mean, in place) in one bucket, NaN / inf scrubbing and one Adam step;
+    returns the norm of the gradients before the scrubbing (not finite
+    where one was not)."""
+    with span(f'{name}/backward'):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span(f'{name}/update'):
+        params = _params(optimizer)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if dist.active():
+            with span(f'{name}/allreduce'):
+                dist.all_reduce_mean([p.grad for p in params]
+                                     + list(shared))
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad) for p in params]))
+        for p in params:
+            torch.nan_to_num_(p.grad)
+        optimizer.step()
     return norm
 
 
 def _detached(stats):
     return {k: v.detach() for k, v in stats.items()}
-
-
-def _phase(timer, name):
-    return timer.phase(name) if timer is not None \
-        else contextlib.nullcontext()
 
 
 class TrainStep:
@@ -144,48 +151,60 @@ class TrainStep:
         self.opt_G = opt_G
         self.opt_D = opt_D
 
+    # each phase's ``timer``: a collector installed for the call
+    # (``utils.profiling.collecting``); None leaves the current one
     def gmain(self, batch, generator, sched, nrr, timer=None):
-        batch, _ = self.loss.flatten_clips(batch)
-        with _frozen(_params(self.opt_D)):
-            loss, stats, w_mean = self.loss.gmain_loss(batch, generator,
-                                                       sched, nrr)
-            stats, w_mean = _detached(stats), w_mean.detach()
+        with collecting(timer), _frozen(_params(self.opt_D)):
+            with span('Gmain/forward'):
+                batch, _ = self.loss.flatten_clips(batch)
+                loss, stats, w_mean = self.loss.gmain_loss(batch, generator,
+                                                           sched, nrr)
+                stats, w_mean = _detached(stats), w_mean.detach()
             stats['Grad/Gmain/norm'] = _adam_step(
-                self.opt_G, loss, [*stats.values(), w_mean], timer, 'Gmain')
-        self.update_w_avg(w_mean)
+                self.opt_G, loss, [*stats.values(), w_mean], 'Gmain')
+            with span('Gmain/w_avg'):
+                self.update_w_avg(w_mean)
         return stats
 
     def greg(self, batch, generator, gain, sched, draws=None, timer=None):
-        batch, _ = self.loss.flatten_clips(batch)
-        with _frozen(_params(self.opt_D)):
-            loss, stats = self.loss.greg_loss(batch, generator, sched, draws)
-            stats = _detached(stats)
+        with collecting(timer), _frozen(_params(self.opt_D)):
+            with span('Greg/forward'):
+                batch, _ = self.loss.flatten_clips(batch)
+                loss, stats = self.loss.greg_loss(batch, generator, sched,
+                                                  draws)
+                stats = _detached(stats)
             stats['Grad/Greg/norm'] = _adam_step(
-                self.opt_G, loss * gain, stats.values(), timer, 'Greg')
+                self.opt_G, loss * gain, stats.values(), 'Greg')
         return stats
 
     def dmain(self, batch, real_img, generator, sched, nrr, timer=None):
-        batch, real_img = self.loss.flatten_clips(batch, real_img)
-        real = self.loss.prepare_real(real_img, sched['blur_sigma'], nrr)
-        with _frozen(_params(self.opt_G)):
-            loss, stats, w_mean = self.loss.dmain_loss(batch, real,
-                                                       generator, sched, nrr)
-            stats, w_mean = _detached(stats), w_mean.detach()
+        with collecting(timer), _frozen(_params(self.opt_G)):
+            with span('Dmain/forward'):
+                batch, real_img = self.loss.flatten_clips(batch, real_img)
+                real = self.loss.prepare_real(real_img, sched['blur_sigma'],
+                                              nrr)
+                loss, stats, w_mean = self.loss.dmain_loss(
+                    batch, real, generator, sched, nrr)
+                stats, w_mean = _detached(stats), w_mean.detach()
             stats['Grad/Dmain/norm'] = _adam_step(
-                self.opt_D, loss, [*stats.values(), w_mean], timer, 'Dmain')
-        # the reference updates G's w_avg in Dmain too (loss.py:264)
-        self.update_w_avg(w_mean)
+                self.opt_D, loss, [*stats.values(), w_mean], 'Dmain')
+            # the reference updates G's w_avg in Dmain too (loss.py:264)
+            with span('Dmain/w_avg'):
+                self.update_w_avg(w_mean)
         return stats
 
     def dreg(self, batch, real_img, gain, generator, sched, nrr,
              timer=None):
-        batch, real_img = self.loss.flatten_clips(batch, real_img)
-        real = self.loss.prepare_real(real_img, sched['blur_sigma'], nrr)
-        with _frozen(_params(self.opt_G)):
-            loss, stats = self.loss.dreg_loss(batch, real, generator, sched)
-            stats = _detached(stats)
+        with collecting(timer), _frozen(_params(self.opt_G)):
+            with span('Dreg/forward'):
+                batch, real_img = self.loss.flatten_clips(batch, real_img)
+                real = self.loss.prepare_real(real_img, sched['blur_sigma'],
+                                              nrr)
+                loss, stats = self.loss.dreg_loss(batch, real, generator,
+                                                  sched)
+                stats = _detached(stats)
             stats['Grad/Dreg/norm'] = _adam_step(
-                self.opt_D, loss * gain, stats.values(), timer, 'Dreg')
+                self.opt_D, loss * gain, stats.values(), 'Dreg')
         return stats
 
     @torch.no_grad()
@@ -209,25 +228,26 @@ class TrainStep:
                    ema_beta=0.999, timer=None):
         """One batch's phases in the reference's order, then the EMA
         (JAX :256-306). Returns the phases' stats (tensors). ``timer``: an
-        optional ``PhaseTimer``, which synchronizes the device around each
-        phase."""
+        optional collector (``utils.profiling``), installed for the call:
+        it receives each phase and part, and the spans beneath them. The
+        train command's ``PhaseTimer`` synchronizes the device around each
+        phase and part."""
         stats = {}
-        with _phase(timer, 'Gmain'):
-            stats.update(self.gmain(batch, generator, sched, nrr,
-                                    timer=timer))
-        if do_greg:
-            with _phase(timer, 'Greg'):
-                stats.update(self.greg(batch, generator,
-                                       float(g_reg_interval), sched,
-                                       timer=timer))
-        with _phase(timer, 'Dmain'):
-            stats.update(self.dmain(batch, real_img, generator, sched, nrr,
-                                    timer=timer))
-        if do_dreg:
-            with _phase(timer, 'Dreg'):
-                stats.update(self.dreg(batch, real_img,
-                                       float(d_reg_interval), generator,
-                                       sched, nrr, timer=timer))
-        with _phase(timer, 'G_ema'):
-            self.ema_update(G_ema, self.loss.G, ema_beta)
+        with collecting(timer):
+            with span('Gmain'):
+                stats.update(self.gmain(batch, generator, sched, nrr))
+            if do_greg:
+                with span('Greg'):
+                    stats.update(self.greg(batch, generator,
+                                           float(g_reg_interval), sched))
+            with span('Dmain'):
+                stats.update(self.dmain(batch, real_img, generator, sched,
+                                        nrr))
+            if do_dreg:
+                with span('Dreg'):
+                    stats.update(self.dreg(batch, real_img,
+                                           float(d_reg_interval), generator,
+                                           sched, nrr))
+            with span('G_ema'):
+                self.ema_update(G_ema, self.loss.G, ema_beta)
         return stats

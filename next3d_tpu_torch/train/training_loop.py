@@ -42,8 +42,9 @@ move (``train/augment.py ada_update_p``); ``Progress/augment`` reports it.
 A snapshot keeps ``ada_p`` under ``extra`` as JAX's does, and the signs
 gathered since the last move, so a resume continues the controller too.
 
-Per-phase timing (``Timing/<phase>``, seconds, a synchronized wall time)
-is sampled every ``timing_sample_every`` batches, as in the JAX package.
+Per-phase timing (``Timing/<phase>`` and ``Timing/<phase>/<part>``,
+seconds, a synchronized wall time: ``utils/profiling.py PhaseTimer``) is
+sampled every ``timing_sample_every`` batches, as in the JAX package.
 Each tick's numeric fields also go to TensorBoard scalars in the run
 directory (``utils/tensorboard.py``, JAX :128-132, :240-245) at the global
 step ``cur_nimg // 1000``. A resume also takes the JAX loop's snapshots and
@@ -55,12 +56,10 @@ and training goes on. The abort and progress callbacks are not ported.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import time
 import traceback
-from collections import defaultdict
 
 import numpy as np
 import torch
@@ -72,41 +71,9 @@ from .augment import ada_update_p
 from ..utils.checkpoint import (is_snapshot, load_optimizer_state,
                                 load_snapshot, optimizer_state, save_snapshot)
 from ..utils.pkl_import import network_data
+from ..utils.profiling import PhaseTimer
 from ..utils.tensorboard import SummaryWriter
 from ..utils.weights import load_jax_params, state_dict_to_params
-
-
-class PhaseTimer:
-    """Synchronized wall time of each phase; ``report()`` gives the means
-    as Timing/<phase> (the JAX package's utils/profiling.py PhaseTimer)."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self._totals = defaultdict(float)
-        self._counts = defaultdict(int)
-
-    def _sync(self):
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
-
-    @contextlib.contextmanager
-    def phase(self, name):
-        self._sync()
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            self._totals[name] += time.perf_counter() - start
-            self._counts[name] += 1
-
-    def report(self, prefix='Timing/'):
-        return {f'{prefix}{k}': self._totals[k] / max(self._counts[k], 1)
-                for k in self._totals}
-
-    def reset(self):
-        self._totals.clear()
-        self._counts.clear()
 
 
 def rank_seed(seed, rank):

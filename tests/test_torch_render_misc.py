@@ -208,22 +208,33 @@ def test_param_counts_match_jax():
 
 
 def test_profiling_phases_scopes_and_trace(tmp_path):
-    timer = profiling.PhaseTimer()
+    """The one collector, ``PhaseTimer``, times the phases and parts it
+    receives through ``span`` and passes the dotted spans on to a recording
+    profiler, whose trace shows them."""
+    timer = profiling.PhaseTimer('cpu')
     x = torch.ones(8)
-    for _ in range(3):
-        with timer.phase('Gmain', block_on={'out': [x * 2]}):
+    with profiling.collecting(timer):
+        for _ in range(3):
+            with profiling.span('Gmain'):
+                with profiling.span('Gmain/forward'):
+                    x = x * 2
+        with profiling.span('Dmain'):
             pass
-    with timer.phase('Dmain'):
-        pass
     report = timer.report()
-    assert set(report) == {'Timing/Gmain', 'Timing/Dmain'}
+    assert set(report) == {'Timing/Gmain', 'Timing/Gmain/forward',
+                           'Timing/Dmain'}
     assert all(v >= 0 for v in report.values())
     timer.reset()
     assert timer.report() == {}
-    with profiling.trace(str(tmp_path / 'prof')):
-        with profiling.scope('render'):
-            (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    path = tmp_path / 'prof' / 'trace.json'
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.collecting(timer):
+            with profiling.span('Gmain'):
+                with profiling.span('G.render'):
+                    (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+    assert set(timer.report()) == {'Timing/Gmain'}
+    path = tmp_path / 'trace.json'
+    prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())['traceEvents']
-    assert any(e.get('name') == 'render' for e in events)
+    assert {'G.render', 'Gmain'} <= {e.get('name') for e in events}
     assert os.path.getsize(path) > 0
