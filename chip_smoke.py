@@ -360,7 +360,7 @@ SEED = 0
 CSRC = 'next3d_tpu_torch/csrc/'
 LIBRARIES = ('raster_binned_uv', 'raster_binned_prep', 'triplane_sample',
              'triplane_backward_binned', 'raster_zbuffer',
-             'gather_row_blocks')
+             'gather_row_blocks', 'upfirdn2d')
 PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12   # H100 SXM float32 outside the tensor cores
 # float32 operations a (pixel, candidate) pair needs in the binned kernels:
@@ -1063,6 +1063,54 @@ def check_k6(device):
             f'{r["library_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms by '
             f'{r["bound_by"]}')
     return results[torch.bfloat16], launches
+
+
+# phase 5: the FIR kernel's timed calls: (name, input shape, channels
+# last, upfirdn2d's arguments): SR block1's filter after its transposed
+# convolution (its input padded to 515^2 in the plain route) and the same
+# filter in a backbone's 256^2 block
+FIR_CALLS = (('SR block1', (8, 128, 513, 513), True, dict(padding=1, gain=4)),
+             ('backbone 256^2', (8, 128, 257, 257), False,
+              dict(padding=1, gain=4)))
+
+
+def check_fir(device):
+    """Phase 5: the FIR kernel (``csrc/upfirdn2d.cu``) at FIR_CALLS against
+    its plain version (float64 sums) and the library call it replaces
+    (``F.conv2d`` depthwise on the padded input, in the input's layout);
+    the entry for the kernels line is SR block1's (its launches are
+    counted on the main path's forwards)."""
+    import importlib
+
+    import torch.nn.functional as F
+    U = importlib.import_module('next3d_tpu_torch.ops.upfirdn2d')
+    f = torch.from_numpy(U.setup_filter([1, 3, 3, 1])).to(device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    results = {}
+    for name, shape, channels_last, kw in FIR_CALLS:
+        x = torch.randn(shape, generator=g, device=device)
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
+        y = U.upfirdn2d(x, f, **kw)
+        want = U.upfirdn2d_plain(x.double(), f, **kw)
+        gap = float((y.double() - want).abs().max() / want.abs().max())
+        if not gap <= 1e-5 or U.is_channels_last(y) != channels_last:
+            raise RuntimeError(f'the FIR kernel disagrees at {name}: {gap}')
+        C = shape[1]
+        w = (f.flip([0, 1]) * kw.get('gain', 1))[None, None].repeat(
+            C, 1, 1, 1)
+        padded = F.pad(x, [kw['padding']] * 4)
+        results[name] = dict(
+            max_rel_err=gap, ms=time_ms(lambda: U.upfirdn2d(x, f, **kw)),
+            plain_ms=time_ms(lambda: U.upfirdn2d_plain(x, f, **kw), 3),
+            library_ms=time_ms(lambda: F.conv2d(padded, w, groups=C), 3),
+            **bound(nbytes(x, y), 0))
+        r = results[name]
+        log(f'FIR {name} {shape} {"NHWC" if channels_last else "NCHW"} '
+            f'4x4 pad 1: rel err {gap:.2g}; kernel {r["ms"]:.3f} ms, plain '
+            f'{r["plain_ms"]:.3f} ms, F.conv2d depthwise {r["library_ms"]:.3f} '
+            f'ms, bound {r["bound_ms"]:.4f} ms by {r["bound_by"]}')
+    return results['SR block1']
 
 
 def check_outputs(out, n):
@@ -4001,6 +4049,7 @@ def main():
         TriPlaneTextureGenerator
     from next3d_tpu_torch.ops import (cuda_build, dma_gather, raster,
                                       raster_zbuffer, triplane)
+    from next3d_tpu_torch.ops.upfirdn2d import upfirdn2d
 
     t0 = time.time()
     for so in cuda_build.build_all(LIBRARIES):
@@ -4030,7 +4079,8 @@ def main():
                                      'launches_bf16'),
                'K4b': triplane.triplane_sample_backward,
                'K5': raster_zbuffer.rasterize_zbuffer,
-               'K6': dma_gather.gather_row_blocks}
+               'K6': dma_gather.gather_row_blocks,
+               'FIR': upfirdn2d}
     launches = {}
 
     with torch.no_grad():
@@ -4053,6 +4103,7 @@ def main():
         check_zbuffer_cases(device)
         stats['K4'] = check_k4(device)
         stats['K6'], launches['K6'] = check_k6(device)
+        stats['FIR'] = check_fir(device)
         finished('3-5')
         outs, counts = counted(lambda: {n: forward(n) for n in (1, 4)},
                                kernels)
@@ -4060,7 +4111,7 @@ def main():
             check_outputs(out, n)
         log(f'512^2 forward at batch 1 and 4: finite, depth in the sample '
             f'range; launches {counts}')
-        launches.update(K1=counts['K1'], K4=counts['K4'])
+        launches.update(K1=counts['K1'], K4=counts['K4'], FIR=counts['FIR'])
         if min(launches.values()) <= 0:
             raise RuntimeError('a kernel of the main path never launched')
         fine = fine_points(lambda: forward(4))
@@ -4098,8 +4149,9 @@ def main():
         log(f'texture variant 512^2 forward at batch 1 and 4: finite, depth '
             f'in the sample range; launches {counts}')
         launches['K2'] = counts['K2']
-        if counts['K2'] <= 0:
-            raise RuntimeError('the texture variant never launched K2')
+        if counts['K2'] <= 0 or counts['FIR'] <= 0:
+            raise RuntimeError(f'the texture variant never launched K2 or '
+                               f'the FIR ({counts})')
         throughput('texture variant', forward_t, card)
         if opts.profile:
             for n in (1, 4):
@@ -4262,7 +4314,9 @@ def main():
         'K5': ('rasterize_zbuffer', 'raster_zbuffer.cu',
                'next3d_tpu/ops/pallas_raster.py:101'),
         'K6': ('gather_row_blocks', 'gather_row_blocks.cu',
-               'next3d_tpu/ops/pallas_dma_gather.py:93')}
+               'next3d_tpu/ops/pallas_dma_gather.py:93'),
+        # the port's own kernel: the JAX package leaves the filter to XLA
+        'FIR': ('upfirdn2d', 'upfirdn2d.cu', 'none')}
     line = [dict(name=f'{k} {fn}', route='cuda', source=CSRC + src,
                  replaces=replaces, launches=launches[k], **stats[k])
             for k, (fn, src, replaces) in names.items()]

@@ -47,6 +47,8 @@ SIGNATURES = {
     'gather_row_blocks': {
         'gather_row_blocks': [_P] * 3 + [ctypes.c_longlong] + [_I] * 2
         + [_P]},
+    'upfirdn2d': {
+        'upfirdn2d': [_P] * 3 + [_I] * 21 + [ctypes.c_float, _P]},
 }
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
