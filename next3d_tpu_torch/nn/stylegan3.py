@@ -15,6 +15,13 @@ host at construction (numpy and scipy) and kept as non-persistent buffers.
 metrics set in place (metrics/equivariance.py). As in the JAX package, the
 forward never updates ``magnitude_ema`` or ``w_avg`` (no ``update_emas``).
 
+Spans (``utils/profiling.py``): ``SG3.mapping`` and ``SG3.synthesis`` around
+those calls; ``SG3.input`` and one ``SG3.layer`` a layer tile the synthesis
+(the output scale, one elementwise op, lies outside them); inside a layer
+``SG3.conv`` (the styles and the modulated convolution) and ``SG3.flrelu``
+(the filtered lrelu, whose parts ``.up``, ``.act`` and ``.down`` are opened
+in ``ops/filtered_lrelu.py``).
+
 Precision follows the JAX package's policy: a layer built with
 ``use_fp16`` runs its modulated convolution and filtered lrelu in bfloat16
 when the forward gets ``force_fp32=False``; the styles, the weight
@@ -33,6 +40,7 @@ from torch import nn
 
 from ..ops.filtered_lrelu import filtered_lrelu
 from ..ops.upfirdn2d import setup_filter
+from ..utils.profiling import span
 from .stylegan2 import FullyConnected, normalize_2nd_moment
 
 
@@ -111,6 +119,7 @@ class SG3MappingNetwork(nn.Module):
             if c_dim > 0 else None
         self.register_buffer('w_avg', torch.zeros(w_dim))
 
+    @span('SG3.mapping')
     def forward(self, z, c=None, truncation_psi=1, truncation_cutoff=None,
                 return_w_mean=False):
         x = normalize_2nd_moment(z.float())
@@ -155,6 +164,7 @@ class SynthesisInput(nn.Module):
         self.register_buffer('freqs', freqs)
         self.register_buffer('phases', phases)
 
+    @span('SG3.input')
     def forward(self, w):
         N = w.shape[0]
         t = self.affine(w)                  # (N, 4) = (r_c, r_s, t_x, t_y)
@@ -261,23 +271,26 @@ class SG3SynthesisLayer(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
         self.register_buffer('magnitude_ema', torch.ones(()))
 
+    @span('SG3.layer')
     def forward(self, x, w, force_fp32=True):
-        styles = self.affine(w)
-        if self.is_torgb:
-            styles = styles / math.sqrt(self.in_channels
-                                        * self.conv_kernel ** 2)
-        dtype = torch.bfloat16 if self.use_fp16 and not force_fp32 \
-            else torch.float32
-        x = modulated_conv2d_sg3(
-            x.to(dtype), self.weight, styles, padding=self.conv_kernel - 1,
-            demodulate=not self.is_torgb,
-            input_gain=self.magnitude_ema.rsqrt())
-        return filtered_lrelu(
-            x, fu=self.up_filter, fd=self.down_filter,
-            b=self.bias.to(x.dtype), up=self.up_factor,
-            down=self.down_factor, padding=self.padding,
-            gain=1 if self.is_torgb else math.sqrt(2),
-            slope=1 if self.is_torgb else 0.2, clamp=self.conv_clamp)
+        with span('SG3.conv'):
+            styles = self.affine(w)
+            if self.is_torgb:
+                styles = styles / math.sqrt(self.in_channels
+                                            * self.conv_kernel ** 2)
+            dtype = torch.bfloat16 if self.use_fp16 and not force_fp32 \
+                else torch.float32
+            x = modulated_conv2d_sg3(
+                x.to(dtype), self.weight, styles,
+                padding=self.conv_kernel - 1, demodulate=not self.is_torgb,
+                input_gain=self.magnitude_ema.rsqrt())
+        with span('SG3.flrelu'):
+            return filtered_lrelu(
+                x, fu=self.up_filter, fd=self.down_filter,
+                b=self.bias.to(x.dtype), up=self.up_factor,
+                down=self.down_factor, padding=self.padding,
+                gain=1 if self.is_torgb else math.sqrt(2),
+                slope=1 if self.is_torgb else 0.2, clamp=self.conv_clamp)
 
 
 class SG3SynthesisNetwork(nn.Module):
@@ -340,6 +353,7 @@ class SG3SynthesisNetwork(nn.Module):
             setattr(self, name, layer)
             self.layer_names.append(name)
 
+    @span('SG3.synthesis')
     def forward(self, ws, force_fp32=True):
         ws = ws.float()
         x = self.input(ws[:, 0])

@@ -25,7 +25,10 @@ stages ``G.<stage>`` (``G.backbones``, ``G.raster``, ``G.mouth_blend``,
 ``G.plane_mix``, ``G.render``, ``G.sr``) tile the last two, and their
 parts are ``G.<stage>.<part>``; each read of the device's data by the
 host, or copy to it, that waits for the device (a host sync) is
-``sync.<site>``. The training phases are not dotted: ``<phase>``
+``sync.<site>``. StyleGAN3's are ``SG3.mapping``, ``SG3.synthesis`` and its
+stages ``SG3.input`` and ``SG3.layer``, a layer's ``SG3.conv`` and
+``SG3.flrelu`` (``.up``, ``.act``, ``.down``). The training phases are not
+dotted: ``<phase>``
 (``Gmain``, ``Greg``, ``Dmain``, ``Dreg``, ``G_ema``) and
 ``<phase>/<part>`` (``forward``, ``backward``, ``update``, ``w_avg``,
 ``allreduce``).
