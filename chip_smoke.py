@@ -1072,6 +1072,75 @@ def check_k6(device):
 FIR_CALLS = (('SR block1', (8, 128, 513, 513), True, dict(padding=1, gain=4)),
              ('backbone 256^2', (8, 128, 257, 257), False,
               dict(padding=1, gain=4)))
+# phase 5: StyleGAN3-R's synthesis network at its FFHQ-U 1024^2 widths
+# (the StyleGAN3 repository's train.py --cfg=stylegan3-r), whose layer
+# SG3_R_LAYER makes the largest FIR calls of the `any` instance: the 24-tap
+# x4 up-pass (1-D, one launch) and the 12x12 radial down-pass, timed here
+# at full spatial size on SG3_R_PLANES (image, channel) planes
+SG3_R_1024 = dict(w_dim=512, img_resolution=1024, img_channels=3,
+                  channel_base=65536, channel_max=1024, num_layers=14,
+                  num_critical=2, margin_size=10, output_scale=0.25,
+                  num_fp16_res=4, conv_kernel=1, use_radial_filters=True,
+                  filter_size=6, lrelu_upsampling=2, conv_clamp=256)
+SG3_R_LAYER, SG3_R_PLANES = 10, 2
+
+
+def check_fir_any(device, g):
+    """Phase 5: the FIR kernel's ``any`` instance at SG3-R's layer
+    SG3_R_LAYER, full planes: its up-pass (the 1-D filter in one launch)
+    and, on that pass's output, its radial down-pass, each against the
+    plain version in float64 within 1e-5 of scale, one launch of ``any``
+    and nothing else, timed beside the plain version and its bytes bound
+    (the input read and the output written once)."""
+    import importlib
+
+    from next3d_tpu_torch.nn.stylegan3 import SG3SynthesisNetwork
+    U = importlib.import_module('next3d_tpu_torch.ops.upfirdn2d')
+    S = SG3SynthesisNetwork(**SG3_R_1024,
+                            generator=torch.Generator().manual_seed(SEED))
+    layer = getattr(S, S.layer_names[SG3_R_LAYER])
+    size = getattr(S, S.layer_names[SG3_R_LAYER - 1]).out_size
+    pad = layer.conv_kernel - 1
+    x = torch.randn(1, SG3_R_PLANES, int(size[1]) + pad, int(size[0]) + pad,
+                    generator=g, device=device)
+    fu, fd = layer.up_filter.to(device), layer.down_filter.to(device)
+    if fu.ndim != 1 or fd.ndim != 2:
+        raise RuntimeError(f'SG3-R layer {SG3_R_LAYER}: filters '
+                           f'{tuple(fu.shape)} and {tuple(fd.shape)}')
+    calls = (('up', fu, dict(up=layer.up_factor, padding=layer.padding,
+                             gain=layer.up_factor ** 2)),
+             ('down', fd, dict(down=layer.down_factor)))
+    results = {}
+    for name, f, kw in calls:
+        counts = U.upfirdn2d.launches_by_instance
+        before = dict(counts), U.upfirdn2d.separable_one_launch
+        y = U.upfirdn2d(x, f, **kw)
+        torch.cuda.synchronize()
+        launched = {k: v - before[0].get(k, 0) for k, v in counts.items()
+                    if v != before[0].get(k, 0)}
+        one_launch = U.upfirdn2d.separable_one_launch - before[1]
+        want = U.upfirdn2d_plain(x.double(), f.double(), **kw)
+        gap = float((y.double() - want).abs().max() / want.abs().max())
+        del want
+        if not gap <= 1e-5 or launched != {'any': 1} \
+                or one_launch != int(f.ndim == 1):
+            raise RuntimeError(f'the FIR kernel at SG3-R layer '
+                               f'{SG3_R_LAYER} {name}: rel err {gap}, '
+                               f'launches {launched}, one-launch 1-D '
+                               f'{one_launch}')
+        results[name] = dict(
+            shape=list(x.shape), taps=list(f.shape), max_rel_err=gap,
+            ms=time_ms(lambda: U.upfirdn2d(x, f, **kw)),
+            plain_ms=time_ms(lambda: U.upfirdn2d_plain(x, f, **kw), 3),
+            **bound(nbytes(x, y), 0))
+        r = results[name]
+        log(f'FIR any SG3-R layer {SG3_R_LAYER} {name} {tuple(x.shape)} '
+            f'NCHW {"x".join(map(str, f.shape))} taps {kw}: rel err '
+            f'{gap:.2g}, one launch; kernel {r["ms"]:.3f} ms, plain '
+            f'{r["plain_ms"]:.3f} ms, bound {r["bound_ms"]:.4f} ms by '
+            f'{r["bound_by"]}')
+        x = y
+    return results
 
 
 def check_fir(device):
@@ -1079,7 +1148,8 @@ def check_fir(device):
     its plain version (float64 sums) and the library call it replaces
     (``F.conv2d`` depthwise on the padded input, in the input's layout);
     the entry for the kernels line is SR block1's (its launches are
-    counted on the main path's forwards)."""
+    counted on the main path's forwards), with check_fir_any's calls under
+    ``any``."""
     import importlib
 
     import torch.nn.functional as F
@@ -1110,7 +1180,7 @@ def check_fir(device):
             f'4x4 pad 1: rel err {gap:.2g}; kernel {r["ms"]:.3f} ms, plain '
             f'{r["plain_ms"]:.3f} ms, F.conv2d depthwise {r["library_ms"]:.3f} '
             f'ms, bound {r["bound_ms"]:.4f} ms by {r["bound_by"]}')
-    return results['SR block1']
+    return dict(results['SR block1'], any=check_fir_any(device, g))
 
 
 def check_outputs(out, n):
@@ -3357,8 +3427,12 @@ def check_sg3(device, card):
     weights of SEED: finite (N, 3, 256, 256) images, img/s at batch 1 and
     4, peak memory, and the device ms of the forward's filtered_lrelu calls
     (each replayed alone on its own inputs) against the whole forward's.
+    The FIR kernel's launches by instance over the first forward at each
+    batch, its counters zeroed before: every call one launch of ``any``,
+    and each 1-D filter's call counted in ``separable_one_launch``.
     Returns the generator and the phase's summary."""
     from next3d_tpu_torch.nn import stylegan3
+    from next3d_tpu_torch.ops.upfirdn2d import upfirdn2d
 
     t0 = time.time()
     S = stylegan3.SG3Generator(**SG3_T_256,
@@ -3372,12 +3446,25 @@ def check_sg3(device, card):
         return S(zs[n])
 
     torch.cuda.reset_peak_memory_stats(device)
+    upfirdn2d.launches_by_instance.clear()
+    upfirdn2d.separable_one_launch = 0
     for n in (1, 4):
         img = forward(n)
         if tuple(img.shape) != (n, 3, 256, 256) or \
                 not bool(torch.isfinite(img).all()):
             raise RuntimeError(f'SG3 batch {n}: shape {tuple(img.shape)} '
                                f'or non-finite')
+    torch.cuda.synchronize()
+    fir = dict(upfirdn2d.launches_by_instance,
+               separable_one_launch=upfirdn2d.separable_one_launch)
+    layers = [getattr(S.synthesis, name) for name in S.synthesis.layer_names]
+    separable = sum(f is not None and f.ndim == 1 for layer in layers
+                    for f in (layer.up_filter, layer.down_filter))
+    if fir != {'any': 2 * 2 * len(layers),
+               'separable_one_launch': 2 * separable}:
+        raise RuntimeError(f'SG3-T forwards at batch 1 and 4: FIR launches '
+                           f'{fir}, for {2 * len(layers)} calls, '
+                           f'{separable} of them 1-D, a forward')
     rates = throughput('SG3-T 256^2', forward, card)
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
 
@@ -3407,9 +3494,10 @@ def check_sg3(device, card):
         f'forward {share[4]["forward_device_ms"]:.3f} ms of device time, its '
         f'{len(calls)} filtered_lrelu calls alone '
         f'{share[4]["filtered_lrelu_device_ms"]:.3f} ms '
-        f'({100 * share[4]["share"]:.1f}%); on {card}')
+        f'({100 * share[4]["share"]:.1f}%); FIR launches over the batch-1 '
+        f'and batch-4 forwards {fir}; on {card}')
     return S, dict(images_per_second=rates, peak_device_mem_gb=peak,
-                   build_s=build_s, filtered_lrelu=share)
+                   build_s=build_s, filtered_lrelu=share, fir_launches=fir)
 
 
 def check_equivariance(S, device, card):
@@ -3536,7 +3624,9 @@ def check_model_families(G, files, mesh, inputs, device, card, kernels):
                'train --resolution 256':
                    out['train_256']['launches']['K4']},
         'K4b': {'train --resolution 256':
-                    out['train_256']['launches']['K4b']}}
+                    out['train_256']['launches']['K4b']},
+        'FIR': {'sg3_t forwards at batch 1 and 4':
+                    out['sg3_t']['fir_launches']}}
     log(f'phase 20: {out["wall_s"]:.1f} s')
     return launches, out, E
 
@@ -4339,6 +4429,10 @@ def main():
             # phase 19 (a): train through the rank entry over NCCL
             entry['parallel_launches'] = parallel_launches[k]
             # phase 20: EG3D's forward, the cross-section, train at 256^2
+            entry['model_family_launches'] = family_launches[k]
+        if k == 'FIR':
+            # phase 20 (b): SG3-T's forwards, by instance, and the 1-D
+            # filters' calls done in one launch
             entry['model_family_launches'] = family_launches[k]
     log(json.dumps({'train': train}))
     log(json.dumps({'train_variants': variants}))

@@ -16,11 +16,14 @@ function with the filter flipped, up and down swapped and the padding
 transposed (as the reference's CUDA plugin), so every order of derivative
 (R1's double backward through D's filters) is the kernel too. The filter
 is a constant: the function saves no tensor. Its launches are counted in
-``upfirdn2d.launches``, by instance in ``upfirdn2d.launches_by_instance``.
+``upfirdn2d.launches``, by instance in ``upfirdn2d.launches_by_instance``,
+and the 1-D filters filtered in one launch in
+``upfirdn2d.separable_one_launch``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -157,6 +160,9 @@ def upfirdn2d_plain(x, f, up=1, down=1, padding=0, flip_filter=False,
 # C index; 0 (``any``) takes every other call
 FIXED = {(1, 1): (1, 'up1'), (2, 1): (2, 'up2'), (1, 2): (3, 'down2')}
 DTYPES = (torch.float32, torch.bfloat16)
+# the most x phases (up / gcd(up, down)) of instance 0's NCHW kernel: a
+# warp's lanes hold them
+ANY_NCHW_PHASES = 32
 
 
 def instance(fh, fw, p):
@@ -181,10 +187,11 @@ def plain_layout(x, p):
     return is_channels_last(x) and p.upx == 1 and p.upy == 1
 
 
-def _pass(x, f, fh, fw, fsx, fsy, p, channels_last):
+def _pass(x, f, fh, fw, fsx, fsy, p, channels_last, separable=False):
     """One launch: ``f``'s taps as an (fh, fw) filter, tap (i, j) at
-    ``f[i * fsy + j * fsx]``; input and output NHWC if ``channels_last``,
-    else NCHW."""
+    ``f[i * fsy + j * fsx]``, or with ``separable`` the 1-D filter ``f``
+    along x then y (``instance`` 0, NCHW); input and output NHWC if
+    ``channels_last``, else NCHW."""
     N, C, H, W = x.shape
     x = x.contiguous(memory_format=torch.channels_last if channels_last
                      else torch.contiguous_format)
@@ -196,25 +203,30 @@ def _pass(x, f, fh, fw, fsx, fsy, p, channels_last):
     out = torch.empty((N, C, oh, ow), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last if channels_last
                       else torch.contiguous_format)
-    which, name = instance(fh, fw, p)
+    which, name = (0, 'any') if separable else instance(fh, fw, p)
     lanes = 16 // x.element_size()
     vec = channels_last and C % lanes == 0 and x.data_ptr() % 16 == 0 \
         and out.data_ptr() % 16 == 0
     cuda_build.launch(
         'upfirdn2d', 'upfirdn2d', x.device, x.data_ptr(), out.data_ptr(),
         f.data_ptr(), int(x.dtype == torch.bfloat16), int(channels_last),
-        int(vec), which, N, C, H, W, oh, ow, p.upx, p.upy, p.downx, p.downy,
-        p.padx0, p.pady0, fw, fh, fsx, fsy, int(p.flip_filter), p.gain)
+        int(vec), which, int(separable), N, C, H, W, oh, ow, p.upx, p.upy,
+        p.downx, p.downy, p.padx0, p.pady0, fw, fh, fsx, fsy,
+        int(p.flip_filter), p.gain)
     upfirdn2d.launches += 1
     counts = upfirdn2d.launches_by_instance
     counts[name] = counts.get(name, 0) + 1
+    upfirdn2d.separable_one_launch += int(separable)
     return out
 
 
 def upfirdn2d_cuda(x, f, p, channels_last):
     """The kernel on CUDA tensors, its output NHWC if ``channels_last``:
-    one pass of a 2-D filter, two of a 1-D one (x, then y, with the gain
-    on the second)."""
+    one launch of a 2-D filter and of an NCHW 1-D one (the x pass's map
+    stays in the block's shared memory), two of an NHWC 1-D one (x, then y,
+    with the gain on the second). An NCHW call with more x phases than
+    ANY_NCHW_PHASES takes the NHWC route on its planes as one-channel
+    images, which lie in memory as in NCHW order."""
     if x.ndim != 4 or x.dtype not in DTYPES:
         raise ValueError(f'the kernel takes a 4-D float32 or bfloat16 input, '
                          f'not {x.dtype} {tuple(x.shape)}')
@@ -222,10 +234,17 @@ def upfirdn2d_cuda(x, f, p, channels_last):
             or f.device != x.device or not f.is_contiguous():
         raise ValueError(f'the kernel takes a contiguous 1-D or 2-D float32 '
                          f'filter on {x.device}')
+    if not channels_last and \
+            p.upx // math.gcd(p.upx, p.downx) > ANY_NCHW_PHASES:
+        N, C, H, W = x.shape
+        y = upfirdn2d_cuda(x.reshape(N * C, 1, H, W), f, p, True)
+        return y.reshape(N, C, *y.shape[2:])
     if f.ndim == 2:
         fh, fw = f.shape
         return _pass(x, f, fh, fw, 1, fw, p, channels_last)
     taps = f.shape[0]
+    if not channels_last:
+        return _pass(x, f, taps, taps, 1, 1, p, False, separable=True)
     x = _pass(x, f, 1, taps, 1, 0, p._replace(
         upy=1, downy=1, pady0=0, pady1=0, gain=1.0), channels_last)
     return _pass(x, f, taps, 1, 0, 1, p._replace(
@@ -289,6 +308,7 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
 
 upfirdn2d.launches = 0
 upfirdn2d.launches_by_instance = {}
+upfirdn2d.separable_one_launch = 0
 
 
 def filter2d(x, f, padding=0, flip_filter=False, gain=1):

@@ -140,10 +140,11 @@ def tile_model(x, f, p, tile_oh, tile_ow):
     return out
 
 
-# the kernel's output tiles (rows, columns): NCHW (64, 32) at up 1 and up
-# 2, (32, 32) at down 2 and in instance 0, (16, 32) for an output shorter
-# than those; NHWC (16, 16) at up 1 and up 2, (8, 8) at down 2, (4, 8) in
-# instance 0; and small ones that put tile edges inside the image
+# the fixed instances' output tiles (rows, columns), and instance 0's in
+# NHWC order (``any_model`` follows its NCHW kernel): NCHW (64, 32) at up 1
+# and up 2, (32, 32) at down 2, (16, 32) for an output shorter than those;
+# NHWC (16, 16) at up 1 and up 2, (8, 8) at down 2, (4, 8) in instance 0;
+# and small ones that put tile edges inside the image
 TILES = [(64, 32), (32, 32), (16, 32), (16, 16), (8, 8), (4, 8), (3, 2),
          (2, 5), (4, 4)]
 
@@ -159,6 +160,399 @@ def test_tiling_matches_plain(case):
         assert not got.isnan().any()
         # the plain version scales its taps in float32
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------- instance 0, NCHW: any_model
+
+# the constants of ``csrc/upfirdn2d.cu any_nchw``: taps a segment, outputs a
+# thread along y (y pass, 2-D pass) and x, warps a block, the shared memory
+# a tile aims at (separable, 2-D) and the most a block has
+KTAPS, KROWS, KROWS2, KCOLS, KWARPS = 6, 8, 4, 3, 8
+TARGET_SEP, TARGET_2D, MOST = 56 * 1024, 75 * 1024, 227 * 1024 - 64
+
+
+def _axis_phase(ax, ph):
+    """(first input, its tap, taps) of phase ``ph``."""
+    e = ph * ax['down'] - ax['pad']
+    first = -(-e // ax['up'])
+    tap = first * ax['up'] - e
+    n = -(-(ax['taps'] - tap) // ax['up']) if tap < ax['taps'] else 0
+    return first, tap, n
+
+
+def _axis(up, down, pad, taps, out, per, groups):
+    """``axis_geometry``: an axis's phases, segments, planes and tiles."""
+    g = math.gcd(up, down)
+    ax = dict(up=up, down=down, pad=pad, taps=taps, phases=up // g,
+              step=down // g)
+    ax['first'] = min(_axis_phase(ax, ph)[0] for ph in range(ax['phases']))
+    most, reach = 1, 0
+    for ph in range(ax['phases']):
+        first, _, n = _axis_phase(ax, ph)
+        d = first - ax['first']
+        for b in range(ax['step']):
+            k = (b - d) % ax['step']
+            nb = -(-(n - k) // ax['step']) if n > k else 0
+            most = max(most, -(-nb // KTAPS))
+            reach = max(reach, (d + k - b) // ax['step'])
+    span = per * groups
+    ax.update(per_plane=most, segs=ax['step'] * most, groups=groups,
+              span=span, tile=ax['phases'] * span,
+              plane=reach + (most - 1) * KTAPS + span + KTAPS - 1,
+              tiles=-(-out // (ax['phases'] * span)))
+    return ax
+
+
+def _segment(ax, ph, j):
+    """``segment``: (plane, offset in the plane, first tap, tap stride) of
+    segment ``j`` of phase ``ph``."""
+    first, tap, _ = _axis_phase(ax, ph)
+    plane, q = divmod(j, ax['per_plane'])
+    d = first - ax['first']
+    k = (plane - d) % ax['step']
+    assert (d + k - plane) % ax['step'] == 0 and d + k - plane >= 0
+    return (plane, (d + k - plane) // ax['step'] + q * KTAPS,
+            tap + ax['up'] * (k + q * KTAPS * ax['step']),
+            ax['up'] * ax['step'])
+
+
+def any_geometry(p, fh, fw, oh, ow, separable, elem=4, groups=None):
+    """``any_nchw::launch``: both axes and the block's shared memory (taps,
+    segment table, the x pass's map, the fetched tile of ``elem``-byte
+    elements in rows of 16-byte words, one word more than its columns
+    need); the row jobs, then the lanes, halved while it takes more than
+    the target. ``groups`` (lanes, row jobs) fixes them instead. Returns
+    the axes, the fetched tile's rows, columns and pitch, and the bytes.
+    Raises where the launch refuses: more x phases than a warp's lanes."""
+    px = p.upx // math.gcd(p.upx, p.downx)
+    py = p.upy // math.gcd(p.upy, p.downy)
+    if px > U.ANY_NCHW_PHASES:
+        raise ValueError(f'{px} x phases: more than a warp has lanes')
+    gx, gy = groups or (32 // px if px < 32 else 1,
+                        KWARPS // py if py < KWARPS else 1)
+    rows_a_job = KROWS if separable else KROWS2
+    while True:
+        ax = _axis(p.upx, p.downx, p.padx0, fw, ow, KCOLS, gx)
+        ay = _axis(p.upy, p.downy, p.pady0, fh, oh, rows_a_job, gy)
+        nx, ny = ax['phases'] * ax['segs'], ay['phases'] * ay['segs']
+        taps = ((nx + ny) * KTAPS + 3) & ~3 if separable \
+            else nx * ny * KTAPS * KTAPS
+        mid = (ay['plane'] * ax['tile'] + 3) & ~3 if separable else 0
+        raw_at = taps + (((nx + ny) * 2 + 3) & ~3) + ay['step'] * mid
+        rows, cols = ay['step'] * ay['plane'], ax['step'] * ax['plane']
+        vec = 16 // elem
+        pitch = vec * (-(-cols // vec) + 1)
+        size = 4 * raw_at + elem * pitch * rows
+        target = TARGET_SEP if separable else TARGET_2D
+        if groups or size <= target or (gx == 1 and gy == 1):
+            break
+        if gy > 1:
+            gy //= 2
+        else:
+            gx //= 2
+    assert size <= MOST, size
+    return ax, ay, (rows, cols, pitch), size
+
+
+def _correlation(f, p, separable):
+    """The correlation taps as the kernel arranges them: g(i, j) of a 2-D
+    filter, or (gx(j), gy(i)) of a 1-D one with the gain on y's."""
+    if separable:
+        g = f if p.flip_filter else f.flip(0)
+        return g, g * p.gain
+    return (f if p.flip_filter else f.flip([0, 1])) * p.gain
+
+
+def any_model(x, f, p, groups=None, elem=4):
+    """Instance 0's NCHW kernel (``csrc/upfirdn2d.cu any_nchw``) in torch:
+    per output tile, the fetched input tile (zeros outside the image; a
+    row may start up to a 16-byte word before its first column), then each
+    thread's block of outputs of one phase from its segments, segment
+    (plane b, offset o) reading the tile at (o + i) * s + b along its axis;
+    a 2-D filter in one pass, a 1-D one through the x pass's map ``mid``
+    (s planes by row mod s) and the y pass. Every index must stay inside
+    the tile and the map, every output be written once."""
+    separable = f.ndim == 1
+    fh, fw = (f.shape[0],) * 2 if separable else f.shape
+    N, C, H, W = x.shape
+    oh = (H * p.upy + p.pady0 + p.pady1 - fh) // p.downy + 1
+    ow = (W * p.upx + p.padx0 + p.padx1 - fw) // p.downx + 1
+    ax, ay, (rows, cols, pitch), _ = any_geometry(p, fh, fw, oh, ow,
+                                                  separable, elem, groups)
+    g = _correlation(f, p, separable)
+    sx, sy = ax['step'], ay['step']
+    shift = 16 // elem - 1    # the most elements a row starts early
+    out = torch.full((N, C, oh, ow), float('nan'), dtype=x.dtype)
+    written = torch.zeros(oh, ow, dtype=torch.int64)
+
+    def taps(axis, ph, j):
+        """Segment ``j``'s taps of phase ``ph``: their indices (clamped)
+        and which of them land on the filter."""
+        _, _, tap, stride = _segment(axis, ph, j)
+        k = torch.arange(KTAPS) * stride + tap
+        return k.clamp(max=axis['taps'] - 1), k < axis['taps']
+
+    def reads(axis, ph, j, first, count, length):
+        """The tile indices that ``count`` values from a segment's element
+        ``first`` on read: (offset + first + i) * s + plane."""
+        plane, off, _, _ = _segment(axis, ph, j)
+        idx = (off + first + torch.arange(count)) * axis['step'] + plane
+        assert int(idx.min()) >= 0 and int(idx.max()) < length
+        return idx
+
+    def write(oy0, ox0, out_rows, out_cols, acc):
+        """acc (N, C, len(out_rows), len(out_cols)) at the tile's rows and
+        columns."""
+        r = oy0 + torch.tensor(out_rows)[:, None].expand(-1, len(out_cols))
+        c = ox0 + torch.tensor(out_cols)[None].expand(len(out_rows), -1)
+        kept = (r < oh) & (c < ow)
+        r, c = r[kept], c[kept]
+        assert bool((written[r, c] == 0).all())
+        written.index_put_((r, c), torch.ones_like(r), accumulate=True)
+        out[:, :, r, c] = acc[:, :, kept]
+
+    lanes = [(lane % ax['phases'], lane // ax['phases'])
+             for lane in range(min(32, ax['phases'] * ax['groups']))]
+    row_jobs = [(yj % ay['phases'], yj // ay['phases'])
+                for yj in range(ay['phases'] * ay['groups'])]
+    assert cols + shift <= pitch
+    for by in range(ay['tiles']):
+        for bx in range(ax['tiles']):
+            oy0, ox0 = by * ay['tile'], bx * ax['tile']
+            r0 = ay['first'] + by * ay['span'] * sy
+            c0 = ax['first'] + bx * ax['span'] * sx
+            tile = torch.zeros(N, C, rows, cols, dtype=x.dtype)
+            rs = slice(max(r0, 0), min(r0 + rows, H))
+            cs = slice(max(c0, 0), min(c0 + cols, W))
+            if rs.start < rs.stop and cs.start < cs.stop:
+                tile[:, :, rs.start - r0: rs.stop - r0,
+                     cs.start - c0: cs.stop - c0] = x[:, :, rs, cs]
+            if separable:
+                mid = torch.full((N, C, sy, ay['plane'], ax['tile']),
+                                 float('nan'), dtype=x.dtype)
+                for phx, gx in lanes:
+                    cols_out = [(gx * KCOLS + m) * ax['phases'] + phx
+                                for m in range(KCOLS)]
+                    assert max(cols_out) < ax['tile']
+                    acc = 0
+                    for j in range(ax['segs']):
+                        c = reads(ax, phx, j, gx * KCOLS,
+                                  KCOLS + KTAPS - 1, cols)
+                        k, real = taps(ax, phx, j)
+                        h = torch.where(real, g[0][k], 0.0)
+                        # (N, C, rows, KCOLS, KTAPS) windows
+                        acc = acc + tile[:, :, :, c].unfold(3, KTAPS, 1) @ h
+                    for r in range(rows):
+                        assert r // sy < ay['plane']
+                        mid[:, :, r % sy, r // sy, cols_out] = acc[:, :, r]
+                for phy, gy in row_jobs:
+                    acc = 0
+                    for j in range(ay['segs']):
+                        r = reads(ay, phy, j, gy * KROWS, KROWS + KTAPS - 1,
+                                  rows)
+                        # mid holds row r of the tile at (r % s, r // s)
+                        src = mid[:, :, r % sy, r // sy]
+                        k, real = taps(ay, phy, j)
+                        h = torch.where(real, g[1][k], 0.0)
+                        acc = acc + src.unfold(2, KTAPS, 1) @ h
+                    assert not acc.isnan().any()
+                    write(oy0, ox0, [(gy * KROWS + k) * ay['phases'] + phy
+                                     for k in range(KROWS)],
+                          list(range(ax['tile'])), acc)
+            else:
+                for phy, gy in row_jobs:
+                    for phx, gx in lanes:
+                        acc = 0
+                        for jy in range(ay['segs']):
+                            r = reads(ay, phy, jy, gy * KROWS2,
+                                      KROWS2 + KTAPS - 1, rows)
+                            ki, ri = taps(ay, phy, jy)
+                            for jx in range(ax['segs']):
+                                c = reads(ax, phx, jx, gx * KCOLS,
+                                          KCOLS + KTAPS - 1, cols)
+                                kj, rj = taps(ax, phx, jx)
+                                block = torch.where(ri[:, None] & rj[None],
+                                                    g[ki][:, kj], 0.0)
+                                win = tile[:, :, r][:, :, :, c].unfold(
+                                    2, KTAPS, 1).unfold(3, KTAPS, 1)
+                                acc = acc + torch.einsum('nckmij,ij->nckm',
+                                                         win, block)
+                        write(oy0, ox0,
+                              [(gy * KROWS2 + k) * ay['phases'] + phy
+                               for k in range(KROWS2)],
+                              [(gx * KCOLS + m) * ax['phases'] + phx
+                               for m in range(KCOLS)], acc)
+    assert bool((written == 1).all())
+    return out
+
+
+@pytest.mark.parametrize('case', CASES, ids=IDS)
+def test_any_model_matches_plain(case):
+    """Instance 0's NCHW arithmetic at the cases, with the kernel's tiles
+    for float32 and bf16 (rows of 4 or 8 elements a 16-byte word), and
+    with one lane and one row job a phase (tile edges inside the image)."""
+    f, p = _call(case)
+    x = torch.randn(1, 2, 9, 11, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1))
+    want = _plain(x, f, p)
+    for groups, elem in ((None, 4), (None, 2), ((1, 1), 4), ((2, 1), 4)):
+        got = any_model(x, f, p, groups, elem)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# StyleGAN3-R's distinct FIR calls at its FFHQ-U 1024² configuration, by
+# (layer index, filter): the filters, up, down and padding follow the
+# layers' sampling rates, not their widths
+SG3R_CALLS = [(0, 'up'), (0, 'down'), (2, 'up'), (12, 'down'), (13, 'up'),
+              (14, 'up')]
+
+
+@pytest.fixture(scope='module')
+def sg3r_synthesis():
+    """The benchmark's reference SG3-R synthesis, narrowed to 4 channels."""
+    import sys
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from benchmark import harness
+    from benchmark.reference.nn import stylegan3 as ref_sg3
+    kw = dict(harness.config('sg3r_ffhqu1024')['G_kwargs'])
+    for key in ('mapping_kwargs', 'z_dim', 'c_dim', 'rendering_kwargs'):
+        kw.pop(key)
+    kw.update(channel_base=512, channel_max=4)
+    return ref_sg3.SynthesisNetwork(**kw)
+
+
+def _sg3r_call(synthesis, index, which):
+    """(filter in float64, parameters, input shape) of a layer's call."""
+    layer = getattr(synthesis, synthesis.layer_names[index])
+    if which == 'up':
+        f, p = layer.up_filter, resampling(
+            layer.up_factor, 1, layer.padding, False, layer.up_factor ** 2)
+        shape = (1, 2, 18, 21)
+    else:
+        f, p = layer.down_filter, resampling(1, layer.down_factor)
+        shape = (1, 2, 37, 40)
+    f = torch.ones(1, 1) if f is None else f
+    return f.double(), p, shape
+
+
+def test_sg3r_calls_are_the_listed_ones(sg3r_synthesis):
+    """SG3R_CALLS holds one of each distinct call of the 15 layers."""
+    def key(f, p):
+        return tuple(f.shape), p
+    every = {key(*_sg3r_call(sg3r_synthesis, i, w)[:2])
+             for i in range(len(sg3r_synthesis.layer_names))
+             for w in ('up', 'down')}
+    listed = [key(*_sg3r_call(sg3r_synthesis, i, w)[:2])
+              for i, w in SG3R_CALLS]
+    assert len(set(listed)) == len(listed) and set(listed) == every
+
+
+@pytest.mark.parametrize('transpose', (False, True),
+                         ids=('forward', 'transposed'))
+@pytest.mark.parametrize('call', SG3R_CALLS,
+                         ids=[f'L{i}-{w}' for i, w in SG3R_CALLS])
+def test_any_model_at_sg3r_calls(sg3r_synthesis, call, transpose):
+    """Each distinct SG3-R call and its transposed call (its backward):
+    the separable route through the x pass's map at up 2 and up 4 (and
+    down 2 and 4, transposed), the 12x12 radial filter split in 2 x 2
+    planes, the 1x1 ToRGB pass."""
+    f, p, shape = _sg3r_call(sg3r_synthesis, *call)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(shape, dtype=torch.float64, generator=g)
+    if transpose:
+        y = _plain(x, f, p)
+        p = transposed(p, f, x.shape[2:], y.shape[2:])
+        x = torch.randn(y.shape, dtype=torch.float64, generator=g)
+    want = _plain(x, f, p)
+    for groups in (None, (1, 1)):
+        got = any_model(x, f, p, groups)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize('transpose', (False, True),
+                         ids=('forward', 'transposed'))
+@pytest.mark.parametrize('which', ('up', 'down'))
+def test_any_model_at_ada_calls(which, transpose):
+    """ADA's geometric pipe: the 12-tap wavelet at up 2, and flipped at
+    down 2, and their transposed calls."""
+    from next3d_tpu_torch.cli.train import PIPE_KWARGS
+    from next3d_tpu_torch.train.augment import AugmentPipe
+    f = torch.from_numpy(AugmentPipe(**PIPE_KWARGS).Hz_geom).double()
+    fw = f.shape[0]
+    if which == 'up':
+        p = resampling(2, 1, [(fw + 1) // 2, (fw - 2) // 2] * 2, False, 4)
+    else:
+        p = resampling(1, 2, [(fw - 1) // 2, (fw - 2) // 2] * 2, True)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 2, 19, 22, dtype=torch.float64, generator=g)
+    if transpose:
+        y = _plain(x, f, p)
+        p = transposed(p, f, x.shape[2:], y.shape[2:])
+        x = torch.randn(y.shape, dtype=torch.float64, generator=g)
+    want = _plain(x, f, p)
+    for groups in (None, (1, 1)):
+        got = any_model(x, f, p, groups)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# (up, filter taps, separable): 32 x phases, the most a warp's lanes hold,
+# and 33 y phases, more row jobs than a block's warps
+MOST_PHASES = [((32, 33), [1, 2, 3, 4, 3, 2, 1, 1], True),
+               ((32, 33), [1, 3, 3, 1], False)]
+
+
+@pytest.mark.parametrize('up, taps, separable', MOST_PHASES,
+                         ids=('1-D', '2-D'))
+def test_any_model_at_the_most_x_phases(up, taps, separable):
+    """Instance 0's NCHW arithmetic at 32 x phases and 33 y phases; at 33
+    x phases ``any_geometry`` refuses, as ``any_nchw::launch`` does."""
+    f = torch.from_numpy(setup_filter(taps, separable=separable)).double()
+    p = resampling(up, 1, [3, 2, 5, 1], False, 2.0)
+    x = torch.randn(1, 2, 5, 4, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(4))
+    torch.testing.assert_close(any_model(x, f, p), _plain(x, f, p),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match='33 x phases'):
+        any_model(x, f, resampling((33, 2), 1, 1))
+
+
+@pytest.mark.parametrize('separable', (True, False), ids=('1-D', '2-D'))
+def test_past_32_x_phases_the_nchw_call_takes_the_nhwc_route(
+        monkeypatch, separable):
+    """At 33 x phases the wrapper runs an NCHW call's planes as one-channel
+    NHWC images (the launch refuses the NCHW kernel there); at 32 the call
+    stays on the NCHW kernel. Each pass is the plain version here, so the
+    result must be the whole call's."""
+    seen = []
+
+    def plain_pass(x, f, fh, fw, fsx, fsy, p, channels_last,
+                   separable=False):
+        seen.append((tuple(x.shape), channels_last, separable))
+        if separable:
+            g = f
+        else:
+            g = f.flatten()[torch.arange(fh)[:, None] * fsy
+                            + torch.arange(fw)[None] * fsx]
+        y = _plain(x, g, p)
+        return y.contiguous(memory_format=torch.channels_last
+                            if channels_last else torch.contiguous_format)
+
+    monkeypatch.setattr(U, '_pass', plain_pass)
+    f = torch.from_numpy(setup_filter([1, 3, 2, 1], separable=separable))
+    x = torch.randn(2, 3, 5, 4, generator=torch.Generator().manual_seed(5))
+    for upx, planes in ((33, (6, 1)), (32, (2, 3))):
+        seen.clear()
+        p = resampling((upx, 2), 1, [3, 2, 1, 1], False, 2.0)
+        got = upfirdn2d_cuda(x, f, p, False)
+        want = _plain(x, f, p)
+        assert got.shape == want.shape and got.is_contiguous()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        nhwc = upx == 33
+        assert [s[0][:2] for s in seen] == [planes] * (
+            2 if separable and nhwc else 1)
+        assert all(s[1] == nhwc and s[2] == (separable and not nhwc)
+                   for s in seen), seen
 
 
 def test_the_models_calls_take_the_fixed_instances():
@@ -445,6 +839,20 @@ def test_kernel_matches_plain_over_the_cases(case):
     g = torch.Generator(device='cuda').manual_seed(0)
     for shape in CARD_SHAPES:
         _check(shape, f, p, g, (case, shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('separable', (True, False), ids=('1-D', '2-D'))
+def test_kernel_matches_plain_past_32_x_phases(separable):
+    """33 x phases (the NHWC route on one-channel planes for an NCHW
+    input), their transposed call at down 33 and back."""
+    _device()
+    f = torch.from_numpy(setup_filter([1, 3, 2, 1],
+                                      separable=separable)).cuda()
+    p = resampling((33, 2), 1, [3, 2, 1, 1], False, 2.0)
+    g = torch.Generator(device='cuda').manual_seed(0)
+    for shape in CARD_SHAPES:
+        _check(shape, f, p, g, ('33 x phases', separable, shape))
 
 
 def _double_backward(x, f, p, run, dy, v):
